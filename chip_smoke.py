@@ -2,12 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the BC7 CUDA kernel from detex_tpu_torch/csrc, holds it bit-exact
-against its plain PyTorch version and the golden vectors, times both,
-then serves 5 requests through the full-width control step
-(ControllerConfig(): 64x64 BC7 observation, 8192 x 32 MPPI rollouts,
-bf16 compute) with a Controller on the card.  Every phase raises on
-failure, so any failure exits non-zero.  Last line:
+Builds every CUDA kernel from detex_tpu_torch/csrc (one nvcc per source,
+all at once) and drives the port's two paths:
+
+  * the control step: the BC7 kernel held bit-exact against its plain
+    PyTorch version and the golden vectors, timed, then 5 requests served
+    through the full-width control step (ControllerConfig(): 64x64 BC7
+    observation, 8192 x 32 MPPI rollouts, bf16) by a Controller;
+  * the texture engine: the BC1/BC1A, BC2/BC3, RGTC1 and RGTC2 (signed
+    and unsigned) kernels held bit-exact against the goldens and against
+    their plain versions on 1,048,576 blocks under 4 flag settings, then
+    one 4096x4096 texture per format (a 4K mip, 1,048,576 blocks) through
+    engine.decompress_texture_linear(backend="device") and one .ktx
+    through the dtx-convert CLI, each byte-equal to the same call with the
+    plain versions swapped in, and every kernel timed against its plain
+    version.
+
+Each path's launch counts are set to 0 just before it and read just
+after.  Every phase raises on failure, so any failure exits non-zero.
+Last lines: the kernels JSON, the card's name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -17,25 +30,59 @@ printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from detex_tpu_torch import _build
+from detex_tpu import formats as F
+from detex_tpu import io as tio
+from detex_tpu.texture import Texture
+from detex_tpu_torch import _build, engine
+from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import runtime as R
-from detex_tpu_torch.ops import bptc
+from detex_tpu_torch.ops import bc, bptc, rgtc
+from detex_tpu_torch.ops.bitops import words_from_bytes
 
 _REPO = Path(__file__).resolve().parent
-_GOLDEN = _REPO / "tests" / "golden" / "BPTC.npz"
+_GOLDEN_DIR = _REPO / "tests" / "golden"
+_GOLDEN = _GOLDEN_DIR / "BPTC.npz"
 _FULL = 0xFFFFFFFF
 _SEED = 0
+_TEX = 4096                 # texture side: a 4K mip
+_N_BIG = (_TEX // 4) ** 2   # its blocks, 1,048,576
+_FLAGS = (0, 0x1, 0x2, 0x4)
+
+# The texture path's variants: kernel, module, wrapper, golden family,
+# block bytes.
+_VARIANTS = {
+    "bc1": ("bc1_decode", bc, "decode_bc1", "BC1", 8),
+    "bc1a": ("bc1_decode", bc, "decode_bc1a", "BC1A", 8),
+    "bc2": ("bc23_decode", bc, "decode_bc2", "BC2", 16),
+    "bc3": ("bc23_decode", bc, "decode_bc3", "BC3", 16),
+    "rgtc1": ("rgtc1_decode", rgtc, "decode_rgtc1", "RGTC1", 8),
+    "signed_rgtc1": ("rgtc1_decode", rgtc, "decode_signed_rgtc1",
+                     "SIGNED_RGTC1", 8),
+    "rgtc2": ("rgtc2_decode", rgtc, "decode_rgtc2", "RGTC2", 16),
+    "signed_rgtc2": ("rgtc2_decode", rgtc, "decode_signed_rgtc2",
+                     "SIGNED_RGTC2", 16),
+}
+# kernel -> TPU kernel it replaces
+_REPLACES = {
+    "bc1_decode": "detex_tpu/ops/pallas/bc_pallas.py:228",
+    "bc23_decode": "detex_tpu/ops/pallas/bc_pallas.py:247",
+    "rgtc1_decode": "detex_tpu/ops/pallas/bc_pallas.py:279",
+    "rgtc2_decode": "detex_tpu/ops/pallas/bc_pallas.py:305",
+}
 
 
 def _device() -> str:
@@ -62,9 +109,16 @@ def _build_kernels() -> float:
     _build.load_library()
     seconds = time.perf_counter() - t0
     print(f"build: {path.relative_to(_REPO)} in {seconds:.2f} s")
+    kernel = "?"
     for line in (path.parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        m = re.search(r"Function properties for .*?"
+                      r"((?:bc7|bc1|bc23|rgtc1|rgtc2)_kernel)(?:ILb([01])E)?",
+                      line)
+        if m:
+            flag = {"0": "<false>", "1": "<true>"}.get(m.group(2), "")
+            kernel = m.group(1) + flag
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {kernel}: {line.strip()}")
     return seconds
 
 
@@ -85,26 +139,29 @@ def _test_blocks(rng) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def _compare(words: torch.Tensor, mode_mask: int, flags: int) -> int:
+def _compare(words: torch.Tensor, mode_mask: int, flags: int,
+             kernel=bptc.decode_bptc, plain=bptc.decode_bptc_plain,
+             name: str = "BC7") -> int:
     """Kernel vs plain version on the card, every pixel and valid flag.
     Returns the largest absolute difference of the packed words (0)."""
-    p_k, v_k = bptc.decode_bptc(words, mode_mask, flags)
-    p_p, v_p = bptc.decode_bptc_plain(words, mode_mask, flags)
+    p_k, v_k = kernel(words, mode_mask, flags)
+    p_p, v_p = plain(words, mode_mask, flags)
     torch.cuda.synchronize()
     err = int((p_k.long() - p_p.long()).abs().max())
     if err or not torch.equal(v_k, v_p):
         bad = int(((p_k != p_p).any(1) | (v_k != v_p)).sum())
-        raise AssertionError(f"BC7 kernel != plain version on {bad} of "
+        raise AssertionError(f"{name} kernel != plain version on {bad} of "
                              f"{len(words)} blocks (mask {mode_mask:#x}, "
                              f"flags {flags})")
     return err
 
 
-def _check_golden() -> int:
-    """Kernel vs tests/golden/BPTC.npz (valid blocks; the reference leaves
-    invalid blocks' pixels unwritten, so the goldens hold zeros there) and
-    vs the plain version on every block."""
-    g = np.load(_GOLDEN)
+def _check_golden(golden: Path = _GOLDEN, kernel=bptc.decode_bptc,
+                  plain=bptc.decode_bptc_plain, name: str = "BC7") -> int:
+    """Kernel vs a golden npz (valid blocks; the reference leaves invalid
+    blocks' pixels unwritten, so the goldens hold zeros there) and vs the
+    plain version on every block."""
+    g = np.load(golden)
     cases = [("corpus", "corpus_blocks", _FULL, 0, "corpus_out",
               "corpus_valid"),
              ("random", "random_blocks", _FULL, 0, "random_out",
@@ -119,18 +176,18 @@ def _check_golden() -> int:
                       f"variant{vi}_corpus_valid"))
         vi += 1
     err = 0
-    for name, blocks, mm, fl, out_key, valid_key in cases:
+    for case, blocks, mm, fl, out_key, valid_key in cases:
         words = _words(g[blocks])
-        pix, valid = bptc.decode_bptc(words, mm, fl)
+        pix, valid = kernel(words, mm, fl)
         valid = valid.cpu().numpy()
         out = pix.cpu().numpy().view(np.uint8).reshape(len(valid), -1)
         out = np.where(valid[:, None], out, 0)
         if not (np.array_equal(valid, g[valid_key])
                 and np.array_equal(out, g[out_key])):
-            raise AssertionError(f"BC7 kernel != golden vectors ({name})")
-        err = max(err, _compare(words, mm, fl))
-    print(f"golden: BC7 kernel bit-exact on {len(cases)} golden sets "
-          f"(corpus, random, {vi} mask/flags variants)")
+            raise AssertionError(f"{name} kernel != golden vectors ({case})")
+        err = max(err, _compare(words, mm, fl, kernel, plain, name))
+    print(f"golden: {name} kernel bit-exact on {len(cases)} golden sets of "
+          f"{golden.name} (corpus, random, {vi} mask/flags variants)")
     return err
 
 
@@ -248,12 +305,283 @@ def _main_path(rng, smi: str) -> int:
     return launches
 
 
+# --- the texture engine ------------------------------------------------------
+
+
+def _branch_blocks(variant: str, n: int, rng) -> np.ndarray:
+    """n random blocks of `variant`, with eighths forced into the branches
+    random bytes rarely reach: colour endpoints c0 <= c1 and c0 == c1
+    (BC1's 3-colour mode, the 0x1 flag of BC2/BC3), channel endpoints
+    l0 <= l1 (as int8 when signed) and l0 == l1 (BC3 alpha and RGTC's
+    5-step palette), and for signed RGTC the invalid (-127, -128) pair and
+    -128 endpoints.  tests/test_torch_bc.py:branch_blocks does the same."""
+    b = rng.integers(0, 256, (n, _VARIANTS[variant][4]), np.uint8)
+    e = [slice(k * n // 8, (k + 1) * n // 8) for k in range(8)]
+    color = {"bc1": 0, "bc1a": 0, "bc2": 8, "bc3": 8}.get(variant)
+    if color is not None:
+        c = b[:, color:color + 4].view(np.uint16)
+        c[e[1]] = np.sort(c[e[1]], axis=1)
+        c[e[2], 1] = c[e[2], 0]
+    signed = variant.startswith("signed")
+    for off in {"bc3": [0], "rgtc1": [0], "signed_rgtc1": [0],
+                "rgtc2": [0, 8], "signed_rgtc2": [0, 8]}.get(variant, []):
+        pair = b[:, off:off + 2].view(np.int8 if signed else np.uint8)
+        pair[e[3]] = np.sort(pair[e[3]], axis=1)
+        pair[e[4], 1] = pair[e[4], 0]
+        if signed:
+            b[e[5], off:off + 2] = (0x81, 0x80)       # (-127, -128)
+            b[e[6], off] = 0x80
+            b[e[7], off + 1] = 0x80
+    return b
+
+
+def _wrapper(variant: str):
+    _, module, name, _, _ = _VARIANTS[variant]
+    return getattr(module, name)
+
+
+def _plain(variant: str):
+    _, module, name, _, _ = _VARIANTS[variant]
+    return getattr(module, name + "_plain")
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Swap every texture-path wrapper for its plain version."""
+    saved = {v: _wrapper(v) for v in _VARIANTS}
+    try:
+        for v in _VARIANTS:
+            setattr(_VARIANTS[v][1], _VARIANTS[v][2], _plain(v))
+        yield
+    finally:
+        for v, fn in saved.items():
+            setattr(_VARIANTS[v][1], _VARIANTS[v][2], fn)
+
+
+def _reset_counts() -> None:
+    for counts in (bc.KERNEL_LAUNCHES, rgtc.KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts() -> dict:
+    return {**bc.KERNEL_LAUNCHES, **rgtc.KERNEL_LAUNCHES}
+
+
+def _bc_golden_phase() -> dict:
+    """Each variant's kernel vs tests/golden/<FAMILY>.npz: corpus, random
+    and every mask/flags variant set."""
+    return {v: _check_golden(_GOLDEN_DIR / f"{_VARIANTS[v][3]}.npz",
+                             _wrapper(v), _plain(v), v) for v in _VARIANTS}
+
+
+def _bc_compare_phase(blocks: dict) -> dict:
+    errs = {}
+    for variant, b in blocks.items():
+        words = _words(b)
+        errs[variant] = max(_compare(words, _FULL, fl, _wrapper(variant),
+                                     _plain(variant), variant)
+                            for fl in _FLAGS)
+    print(f"bits: the 4 texture kernels bit-exact (tolerance 0) vs their "
+          f"plain versions on the card, {_N_BIG} blocks x flags "
+          f"{list(_FLAGS)} for each of the {len(blocks)} variants, forced "
+          f"branches and invalid blocks included")
+    return errs
+
+
+def _texture_calls(variant: str, blocks: np.ndarray):
+    """(label, texture, pixel format) of the texture path for a variant:
+    the 4096 x 4096 texture in its native format, to BGRA8 for the RGBA8
+    families, and cropped to 4093 x 4090 for BC1 and RGTC2."""
+    fmt = F.BY_NAME[_VARIANTS[variant][3]].fmt
+    tex = Texture.new(fmt, blocks, _TEX, _TEX)
+    calls = [("native", tex, None)]
+    if F.texture_pixel_format(fmt) in (F.RGBA8, F.RGBX8):
+        calls.append(("BGRA8", tex, F.BGRA8))
+    if variant in ("bc1", "rgtc2"):
+        # (_TEX - 3) x (_TEX - 6) takes _TEX/4 x (_TEX/4 - 1) blocks.
+        crop = Texture.new(fmt, blocks[:_N_BIG - _TEX // 4], _TEX - 3,
+                           _TEX - 6)
+        calls.append(("cropped", crop, None))
+    return calls
+
+
+def _texture_path(blocks: dict, smi: str) -> dict:
+    """The slice's main path: every variant's 4096^2 texture through
+    engine.decompress_texture_linear(backend="device"), byte-equal to the
+    same calls with the plain versions.  Returns the launch counts."""
+    calls = {v: _texture_calls(v, b) for v, b in blocks.items()}
+    _reset_counts()
+    outs, wall = {}, {}
+    for variant, cs in calls.items():
+        for label, tex, pf in cs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.decompress_texture_linear(tex, pf, backend="device",
+                                                   device="cuda")
+            wall[(variant, label)] = time.perf_counter() - t0
+            outs[(variant, label)] = out
+            if engine.LAST_BACKEND != "device":
+                raise AssertionError("texture call did not run on device")
+            want = tex.width * tex.height * F.pixel_size(
+                pf or F.texture_pixel_format(tex.format))
+            if out.dtype != np.uint8 or out.shape != (want,):
+                raise AssertionError(f"{variant} {label}: bad output "
+                                     f"{out.dtype} {out.shape}")
+    launches = _counts()
+    missing = [v for v in _VARIANTS if launches[v] == 0]
+    if missing:
+        raise AssertionError(f"texture path launched no kernel for "
+                             f"{missing}: {launches}")
+    with _plain_versions():
+        for variant, cs in calls.items():
+            for label, tex, pf in cs:
+                plain = engine.decompress_texture_linear(
+                    tex, pf, backend="device", device="cuda")
+                if not np.array_equal(plain, outs[(variant, label)]):
+                    raise AssertionError(f"{variant} {label}: kernel and "
+                                         "plain texture bytes differ")
+    print(f"main path (texture engine): {sum(map(len, calls.values()))} "
+          f"decompress_texture_linear(backend='device') calls on "
+          f"{_TEX}x{_TEX} textures, byte-equal to the plain versions; "
+          f"launches {launches}")
+    for (variant, label), sec in wall.items():
+        if label == "cropped":
+            continue
+        print(f"texture wall: {variant} {_TEX}x{_TEX} -> {label}: "
+              f"{sec * 1e3:.3f} ms host bytes in to host bytes out, "
+              f"{_N_BIG / sec:.4g} blocks/s (first call of its kind "
+              f"included) on {smi}")
+    return launches
+
+
+def _cli_path(blocks: dict) -> dict:
+    """dtx-convert -d on a 4096^2 BC3 .ktx written with save_ktx, against
+    the same run with the plain versions.  Returns its launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "in.ktx"
+        tio.save_ktx([Texture.new(F.BC3, blocks["bc3"], _TEX, _TEX)],
+                     str(src))
+        _reset_counts()
+        cli_convert.main(["-q", "-d", str(src), str(Path(tmp) / "k.ktx")])
+        launches = _counts()
+        with _plain_versions():
+            cli_convert.main(["-q", "-d", str(src),
+                              str(Path(tmp) / "p.ktx")])
+        k = (Path(tmp) / "k.ktx").read_bytes()
+        p = (Path(tmp) / "p.ktx").read_bytes()
+    if launches["bc3"] != 1 or k != p:
+        raise AssertionError(f"CLI: launches {launches}, outputs equal "
+                             f"{k == p}")
+    print(f"cli: dtx-convert -d on a {_TEX}x{_TEX} BC3 .ktx ({len(k)} B out) "
+          f"byte-equal to the plain run; bc3 kernel launches 1")
+    return launches
+
+
+def _bc_timing(blocks: dict) -> dict:
+    """Kernel vs plain version per variant at N = 4096 and 1,048,576, by
+    CUDA events, alternating (kernel, plain, plain, kernel)."""
+    times = {}
+    for variant, b in blocks.items():
+        words = _words(b)
+        k_fn, p_fn = _wrapper(variant), _plain(variant)
+        for n in (4096, _N_BIG):
+            w = words[:n].contiguous()
+            reps, inner = (21, 20) if n == 4096 else (7, 3)
+            k1 = _time_ms(lambda: k_fn(w))
+            p1 = _time_ms(lambda: p_fn(w), reps=reps, inner=inner)
+            p2 = _time_ms(lambda: p_fn(w), reps=reps, inner=inner)
+            k2 = _time_ms(lambda: k_fn(w))
+            times[(variant, n)] = (min(k1, k2), min(p1, p2))
+            out_words = k_fn(w[:1])[0].shape[1]
+            moved = n * (4 * w.shape[1] + 4 * out_words + 1)
+            print(f"time: {variant} N={n}: kernel {k1:.5f} / {k2:.5f} ms, "
+                  f"plain {p1:.5f} / {p2:.5f} ms per call; kernel "
+                  f"{moved / (min(k1, k2) * 1e6):.4g} GB/s moved")
+    return times
+
+
+def _texture_breakdown(blocks: dict, smi: str) -> None:
+    """Where the time of one warm 4096^2 texture call goes, stage by stage
+    (host clock, synchronised after each stage), for a 64 B and a 16 B
+    output per block; then the whole call, median of 5."""
+    for variant in ("bc1", "rgtc1"):
+        tex = _texture_calls(variant, blocks[variant])[0][1]
+        stages = {}
+
+        def stage(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stages[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        for _ in range(2):                           # the second is warm
+            raw = tex.data.reshape(tex.n_blocks, tex.block_size)
+            w = stage("words_from_bytes", lambda: torch.from_numpy(
+                words_from_bytes(raw)))
+            w = stage("host_to_device", lambda: w.cuda())
+            pix, valid = stage("kernel", lambda: _wrapper(variant)(w))
+            tiles = stage("zero_invalid", lambda: torch.where(
+                valid[:, None], pix.view(torch.uint8), 0))
+            ps = F.pixel_size(F.texture_pixel_format(tex.format))
+            img = stage("assemble", lambda: tiles.reshape(
+                _TEX // 4, _TEX // 4, 4, 4, ps).permute(0, 2, 1, 3, 4)
+                .reshape(_TEX, _TEX, ps).contiguous())
+            stage("device_to_host", lambda: img.cpu().numpy().ravel())
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.decompress_texture_linear(tex, backend="device",
+                                             device="cuda")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        print(f"texture breakdown: {variant} {_TEX}x{_TEX} native, warm, "
+              f"ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; whole call median of 5 {wall:.3f} ms "
+              f"({_N_BIG / wall * 1e3:.4g} blocks/s) on {smi}")
+
+
+def _texture_phase(rng, smi: str):
+    """Goldens, kernel vs plain at N = 1,048,576, the texture path, the
+    CLI and the timings.  Returns the kernels' JSON entries."""
+    errs = _bc_golden_phase()
+    blocks = {v: _branch_blocks(v, _N_BIG, rng) for v in _VARIANTS}
+    for v, e in _bc_compare_phase(blocks).items():
+        errs[v] = max(errs[v], e)
+    launches = _texture_path(blocks, smi)
+    _cli_path(blocks)
+    _texture_breakdown(blocks, smi)
+    times = _bc_timing(blocks)
+    entries = []
+    for kernel, replaces in _REPLACES.items():
+        variants = [v for v in _VARIANTS if _VARIANTS[v][0] == kernel]
+        first = variants[0]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "detex_tpu_torch/csrc/bc.cu", "replaces": replaces,
+            "launches": sum(launches[v] for v in variants),
+            "max_abs_err": max(errs[v] for v in variants),
+            "ms": times[(first, _N_BIG)][0],
+            "plain_ms": times[(first, _N_BIG)][1],
+            "variants": {v: {
+                "launches": launches[v], "max_abs_err": errs[v],
+                "ms": times[(v, _N_BIG)][0],
+                "plain_ms": times[(v, _N_BIG)][1],
+                "ms_n4096": times[(v, 4096)][0],
+                "plain_ms_n4096": times[(v, 4096)][1]} for v in variants}})
+    return entries
+
+
 def main() -> None:
     smi = _device()
     _build_kernels()
     rng = np.random.default_rng(_SEED)
     timing = _kernel_phase(rng)
     launches = _main_path(rng, smi)
+    texture_kernels = _texture_phase(rng, smi)
     print(json.dumps({"kernels": [{
         "name": "bc7_decode", "route": "cuda",
         "source": "detex_tpu_torch/csrc/bc7.cu",
@@ -261,7 +589,7 @@ def main() -> None:
         "launches": launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "ms_n65536": timing["ms_65536"],
-        "plain_ms_n65536": timing["plain_ms_65536"]}]}))
+        "plain_ms_n65536": timing["plain_ms_65536"]}, *texture_kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

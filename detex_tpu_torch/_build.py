@@ -1,9 +1,11 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 The library is compiled at first use from the sources under csrc/ into
-csrc/build/<hash of the sources and flags>/, so an edited source builds
-anew and an unchanged one loads the earlier build.  Only a machine with
-the CUDA toolkit can build it; nothing here is imported by the CPU path.
+csrc/build/<hash of every file under csrc/ and the flags>/, so an edited
+source builds anew and an unchanged one loads the earlier build.  Each
+.cu file compiles in its own nvcc process, all started together, and
+the objects link into one libdtx_cuda.so.  Only a machine with the CUDA
+toolkit can build it; nothing here is imported by the CPU path.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bc7.cuh", "bc7.cu")
+# Every file under csrc/ (headers and host shims included) enters the
+# build hash; the .cu files are the translation units.
+SOURCES = tuple(sorted(p.name for p in CSRC.iterdir() if p.is_file()))
+UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "libdtx_cuda.so"
 
 
@@ -53,14 +58,35 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "bc7.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for unit in UNITS:
+        obj = out.with_name(f"{unit}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / unit)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    log, failed = [], []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{text}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+    (out.parent / "nvcc.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -74,4 +100,12 @@ def load_library() -> ctypes.CDLL:
                    ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    # bc.cu: (words, n, mode_mask, flags, variant, pixels, valid, stream).
+    for name in ("dtx_bc1_decode", "dtx_bc23_decode", "dtx_rgtc1_decode",
+                 "dtx_rgtc2_decode"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -21,13 +21,7 @@
 
 #include <stdint.h>
 
-#if defined(__CUDACC__)
-#define DTX_HD __host__ __device__ __forceinline__
-#define DTX_UNROLL _Pragma("unroll")
-#else
-#define DTX_HD inline
-#define DTX_UNROLL
-#endif
+#include "dtx_hd.cuh"
 
 // A 64-entry uint32 table, visible to the device pass as read-only global
 // memory and to the host pass as a plain array.

@@ -1,6 +1,7 @@
-"""Bit-manipulation helpers on int32 words, for the BC7 plain version.
+"""Bit-manipulation helpers on int32 words, for the plain versions of the
+block decoders (ops/bptc.py, ops/bc.py, ops/rgtc.py).
 
-Counterpart of detex_tpu/ops/bitops.py, cut to what ops/bptc.py needs.
+Counterpart of detex_tpu/ops/bitops.py, cut to what those modules need.
 Blocks are (N, 4) int32 little-endian words.  Torch's `>>` on int32 is an
 arithmetic shift and its int32 products can overflow, so every shift that
 may touch bit 31 runs on int64 copies holding the unsigned 32-bit value,
@@ -9,9 +10,17 @@ and results go back to int32 through `to_i32`, which wraps explicitly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _U32 = 0xFFFFFFFF
+
+
+def words_from_bytes(blocks_u8: np.ndarray) -> np.ndarray:
+    """(N, 4*k) uint8 blocks -> (N, k) int32 little-endian words (numpy,
+    bit-preserving; a new writable array, so torch.from_numpy takes it)."""
+    blocks_u8 = np.ascontiguousarray(blocks_u8, dtype=np.uint8)
+    return blocks_u8.view(np.int32).reshape(blocks_u8.shape[0], -1).copy()
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +39,19 @@ def shr(x: torch.Tensor, n) -> torch.Tensor:
     if isinstance(n, torch.Tensor):
         n = n.to(torch.int64)
     return to_i32(u32(x) >> n)
+
+
+def field(x: torch.Tensor, start: int, width: int) -> torch.Tensor:
+    """Static bit field [start, start + width) of int32 `x`, as int32."""
+    assert 0 <= start and start + width <= 32 and width <= 31
+    return ((u32(x) >> start) & ((1 << width) - 1)).to(torch.int32)
+
+
+def div_trunc(num: torch.Tensor, den: int) -> torch.Tensor:
+    """Integer division rounding toward zero, as C's `/` and the signed
+    division tables of the reference (detex.h:966-982) do; torch's `//`
+    rounds toward minus infinity."""
+    return torch.sign(num) * (torch.abs(num) // den)
 
 
 def dyn_field(words: torch.Tensor, start: torch.Tensor,
@@ -85,3 +107,18 @@ def pack_rgba8(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     (reference detexPack32RGBA8, detex.h:1006-1016)."""
     c = [x.to(torch.int64) & 0xFF for x in (r, g, b, a)]
     return to_i32(c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24))
+
+
+def pack_u8x4(vals: torch.Tensor) -> torch.Tensor:
+    """(N, 4k) 8-bit values -> (N, k) int32 words, four little-endian
+    bytes each."""
+    v = (vals.to(torch.int64) & 0xFF).reshape(vals.shape[0], -1, 4)
+    return to_i32(v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16)
+                  | (v[..., 3] << 24))
+
+
+def pack_u16x2(vals: torch.Tensor) -> torch.Tensor:
+    """(N, 2k) 16-bit values (signed or not) -> (N, k) int32 words, two
+    little-endian halves each."""
+    v = (vals.to(torch.int64) & 0xFFFF).reshape(vals.shape[0], -1, 2)
+    return to_i32(v[..., 0] | (v[..., 1] << 16))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from detex_tpu import formats as F
-from detex_tpu_torch import _build
+from detex_tpu_torch.ops import _cuda
 from detex_tpu_torch.ops.bitops import (dyn_field, dyn_field_vw, has_flag,
                                         mask_bit, pack_rgba8)
 
@@ -255,29 +255,11 @@ def decode_bptc_plain(words: torch.Tensor, mode_mask: int = _FULL,
 
 def _decode_bptc_cuda(words: torch.Tensor, mode_mask: int, flags: int):
     global KERNEL_LAUNCHES
-    if words.dtype != torch.int32 or words.dim() != 2 \
-            or words.shape[1] != 4:
-        raise ValueError("BC7 words must be an (N, 4) int32 tensor, got "
-                         f"{tuple(words.shape)} {words.dtype}")
-    if not words.is_contiguous():
-        raise ValueError("BC7 words must be contiguous")
-    if words.data_ptr() % 16:
-        raise ValueError("BC7 words must be 16-byte aligned")
-    lib = _build.load_library()
-    n = words.shape[0]
-    pix = torch.empty((n, 16), dtype=torch.int32, device=words.device)
-    valid = torch.empty((n,), dtype=torch.bool, device=words.device)
-    if n == 0:
-        return pix, valid
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dtx_bc7_decode(words.data_ptr(), n,
-                                 int(mode_mask) & _FULL, int(flags) & _FULL,
-                                 pix.data_ptr(), valid.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"BC7 kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES += 1
-    return pix, valid
+    out = _cuda.launch("BC7", "dtx_bc7_decode", words, 4, 16, mode_mask,
+                       flags)
+    if words.shape[0]:
+        KERNEL_LAUNCHES += 1
+    return out
 
 
 def decode_bptc(words: torch.Tensor, mode_mask: int = _FULL,

@@ -306,7 +306,9 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
 def test_port_imports_no_jax():
     code = ("import sys; import detex_tpu_torch, detex_tpu_torch.entry, "
             "detex_tpu_torch._build, detex_tpu_torch.ops.bptc, "
-            "detex_tpu_torch.mpc.runtime; "
+            "detex_tpu_torch.mpc.runtime, detex_tpu_torch.engine, "
+            "detex_tpu_torch.ops.bc, detex_tpu_torch.ops.rgtc, "
+            "detex_tpu_torch.cli.convert; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=_REPO)
