@@ -10,13 +10,15 @@ all at once) and drives the port's two paths:
     through the full-width control step (ControllerConfig(): 64x64 BC7
     observation, 8192 x 32 MPPI rollouts, bf16) by a Controller;
   * the texture engine: the BC1/BC1A, BC2/BC3, RGTC1 and RGTC2 (signed
-    and unsigned) kernels held bit-exact against the goldens and against
-    their plain versions on 1,048,576 blocks under 4 flag settings, then
-    one 4096x4096 texture per format (a 4K mip, 1,048,576 blocks) through
-    engine.decompress_texture_linear(backend="device") and one .ktx
-    through the dtx-convert CLI, each byte-equal to the same call with the
-    plain versions swapped in, and every kernel timed against its plain
-    version.
+    and unsigned) kernels and the ETC1/ETC2/ETC2 punchthrough, ETC2_EAC,
+    EAC R11 and RG11 (signed and unsigned) kernels held bit-exact against
+    the goldens and against their plain versions on 1,048,576 blocks with
+    forced branches under 4 flag settings (ETC/EAC also under 6 mode
+    masks), then one 4096x4096 texture per format (a 4K mip, 1,048,576
+    blocks) through engine.decompress_texture_linear(backend="device") and
+    a BC3, an ETC2_EAC and an EAC_RG11 .ktx through the dtx-convert CLI,
+    each byte-equal to the same call with the plain versions swapped in,
+    and every kernel timed against its plain version.
 
 Each path's launch counts are set to 0 just before it and read just
 after.  Every phase raises on failure, so any failure exits non-zero.
@@ -50,7 +52,7 @@ from detex_tpu_torch import _build, engine
 from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import runtime as R
-from detex_tpu_torch.ops import bc, bptc, rgtc
+from detex_tpu_torch.ops import bc, bptc, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 
 _REPO = Path(__file__).resolve().parent
@@ -61,6 +63,9 @@ _SEED = 0
 _TEX = 4096                 # texture side: a 4K mip
 _N_BIG = (_TEX // 4) ** 2   # its blocks, 1,048,576
 _FLAGS = (0, 0x1, 0x2, 0x4)
+# ETC/EAC: the flags at the full mode mask, then mode masks at flags 0.
+_ETC_SETTINGS = tuple((_FULL, fl) for fl in _FLAGS) + tuple(
+    (mm, 0) for mm in (0x1, 0x2, 0x4, 0x8, 0x10, 0x1A))
 
 # The texture path's variants: kernel, module, wrapper, golden family,
 # block bytes.
@@ -75,13 +80,31 @@ _VARIANTS = {
     "rgtc2": ("rgtc2_decode", rgtc, "decode_rgtc2", "RGTC2", 16),
     "signed_rgtc2": ("rgtc2_decode", rgtc, "decode_signed_rgtc2",
                      "SIGNED_RGTC2", 16),
+    "etc1": ("etc_decode", etc, "decode_etc1", "ETC1", 8),
+    "etc2": ("etc_decode", etc, "decode_etc2", "ETC2", 8),
+    "etc2_punchthrough": ("etc_decode", etc, "decode_etc2_punchthrough",
+                          "ETC2_PUNCHTHROUGH", 8),
+    "etc2_eac": ("etc2_eac_decode", etc, "decode_etc2_eac", "ETC2_EAC", 16),
+    "eac_r11": ("eac_r11_decode", eac, "decode_eac_r11", "EAC_R11", 8),
+    "eac_signed_r11": ("eac_r11_decode", eac, "decode_eac_signed_r11",
+                       "EAC_SIGNED_R11", 8),
+    "eac_rg11": ("eac_rg11_decode", eac, "decode_eac_rg11", "EAC_RG11", 16),
+    "eac_signed_rg11": ("eac_rg11_decode", eac, "decode_eac_signed_rg11",
+                        "EAC_SIGNED_RG11", 16),
 }
-# kernel -> TPU kernel it replaces
+# kernel -> (its source, the TPU kernel it replaces)
+_BC_CU = "detex_tpu_torch/csrc/bc.cu"
+_ETC_CU = "detex_tpu_torch/csrc/etc_eac.cu"
+_ETC_PALLAS = "detex_tpu/ops/pallas/etc_eac_pallas.py"
 _REPLACES = {
-    "bc1_decode": "detex_tpu/ops/pallas/bc_pallas.py:228",
-    "bc23_decode": "detex_tpu/ops/pallas/bc_pallas.py:247",
-    "rgtc1_decode": "detex_tpu/ops/pallas/bc_pallas.py:279",
-    "rgtc2_decode": "detex_tpu/ops/pallas/bc_pallas.py:305",
+    "bc1_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:228"),
+    "bc23_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:247"),
+    "rgtc1_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:279"),
+    "rgtc2_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:305"),
+    "etc_decode": (_ETC_CU, f"{_ETC_PALLAS}:490, :509, :518"),
+    "etc2_eac_decode": (_ETC_CU, f"{_ETC_PALLAS}:533"),
+    "eac_r11_decode": (_ETC_CU, f"{_ETC_PALLAS}:546"),
+    "eac_rg11_decode": (_ETC_CU, f"{_ETC_PALLAS}:559"),
 }
 
 
@@ -111,11 +134,13 @@ def _build_kernels() -> float:
     print(f"build: {path.relative_to(_REPO)} in {seconds:.2f} s")
     kernel = "?"
     for line in (path.parent / "nvcc.log").read_text().splitlines():
-        m = re.search(r"Function properties for .*?"
-                      r"((?:bc7|bc1|bc23|rgtc1|rgtc2)_kernel)(?:ILb([01])E)?",
-                      line)
+        m = re.search(r"Function properties for .*?((?:bc7|bc1|bc23|rgtc1|"
+                      r"rgtc2|etc|etc2_eac|eac_r11|eac_rg11)_kernel)"
+                      r"(?:IL([bi])(\d+)E)?", line)
         if m:
-            flag = {"0": "<false>", "1": "<true>"}.get(m.group(2), "")
+            flag = "" if not m.group(2) else \
+                f"<{m.group(3)}>" if m.group(2) == "i" else \
+                f"<{'true' if m.group(3) == '1' else 'false'}>"
             kernel = m.group(1) + flag
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.strip()}")
@@ -162,10 +187,8 @@ def _check_golden(golden: Path = _GOLDEN, kernel=bptc.decode_bptc,
     blocks' pixels unwritten, so the goldens hold zeros there) and vs the
     plain version on every block."""
     g = np.load(golden)
-    cases = [("corpus", "corpus_blocks", _FULL, 0, "corpus_out",
-              "corpus_valid"),
-             ("random", "random_blocks", _FULL, 0, "random_out",
-              "random_valid")]
+    cases = [(s, f"{s}_blocks", _FULL, 0, f"{s}_out", f"{s}_valid")
+             for s in ("corpus", "random") if f"{s}_blocks" in g]
     vi = 0
     while f"variant{vi}_out" in g:
         mm, fl = int(g[f"variant{vi}_mask"]), int(g[f"variant{vi}_flags"])
@@ -187,7 +210,7 @@ def _check_golden(golden: Path = _GOLDEN, kernel=bptc.decode_bptc,
             raise AssertionError(f"{name} kernel != golden vectors ({case})")
         err = max(err, _compare(words, mm, fl, kernel, plain, name))
     print(f"golden: {name} kernel bit-exact on {len(cases)} golden sets of "
-          f"{golden.name} (corpus, random, {vi} mask/flags variants)")
+          f"{golden.name} ({', '.join(c[0] for c in cases)})")
     return err
 
 
@@ -335,6 +358,72 @@ def _branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     return b
 
 
+def _overflow_bytes():
+    """(overflowing, other) byte values of an ETC colour channel: the
+    differential sum (b & 0xF8) + delta * 8 has bits in 0xFF07 set."""
+    b = np.arange(256)
+    d = b & 7
+    raw = (b & 0xF8) + np.where(d >= 4, d - 8, d) * 8
+    ovf = (raw & 0xFF07) != 0
+    return b[ovf].astype(np.uint8), b[~ovf].astype(np.uint8)
+
+
+def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
+    """n random blocks of an ETC/EAC variant, with eighths forced into the
+    branches random bytes rarely reach (T, H and planar each come up in
+    about 3% of random ETC2 blocks, a signed EAC base of -128 in 1/256).
+    Colour blocks (ETC variants; ETC2_EAC's at byte 8): eighth 1 individual
+    (the differential bit 0; non-opaque differential in punchthrough), 2
+    differential without overflow, 3 T (R overflows; ETC1's differential
+    overflow), 4 H (G), 5 planar (B), 6 T, H or planar with the
+    differential bit 0 (non-opaque ones in punchthrough); half of the H
+    blocks have equal base colours (the tie of H's distance bit).  EAC
+    channels
+    (ETC2_EAC's alpha, R11 and RG11): eighths 1 and 7 multiplier 0, 6 base
+    byte 0x80 (-128 when signed) in the first channel, 5 in the last, 4
+    base 0x7F.  The flip bit and every other field stay random.
+    tests/test_torch_etc.py draws its blocks here too."""
+    wide = variant in ("etc2_eac", "eac_rg11", "eac_signed_rg11")
+    b = rng.integers(0, 256, (n, 16 if wide else 8), np.uint8)
+    e = [np.arange(k * n // 8, (k + 1) * n // 8) for k in range(8)]
+    ovf, ok = _overflow_bytes()
+
+    def force_mode(rows, c, mode):
+        # The first overflowing channel R, G, B makes mode 2, 3, 4; none, 1.
+        for ch in range(3 if mode == 1 else mode - 1):
+            vals = ovf if ch == mode - 2 else ok
+            b[rows, c + ch] = rng.choice(vals, len(rows))
+
+    if variant.startswith("etc"):
+        c = 8 if variant == "etc2_eac" else 0
+        b[e[1], c + 3] &= 0xFD
+        for k, mode in ((2, 1), (3, 2), (4, 3), (5, 4)):
+            b[e[k], c + 3] |= 2
+            force_mode(e[k], c, mode)
+        b[e[6], c + 3] &= 0xFD
+        for rows, mode in zip(np.array_split(e[6], 3), (2, 3, 4)):
+            force_mode(rows, c, mode)
+        # H with the second base colour equal to the first
+        # (decompress-etc.c:253-260): copy its 4-bit R, G, B into the
+        # fields of the second.
+        tie = e[4][::2]
+        b0, b1, b2 = (b[tie, c + k].astype(np.int32) for k in range(3))
+        r = (b0 & 0x78) >> 3
+        g = ((b0 & 0x07) << 1) | ((b1 & 0x10) >> 4)
+        bl = (b1 & 0x08) | ((b1 & 0x03) << 1) | ((b2 & 0x80) >> 7)
+        b[tie, c + 2] = (b2 & 0x80) | (r << 3) | (g >> 1)
+        b[tie, c + 3] = (b[tie, c + 3] & 0x07) | ((g & 1) << 7) | (bl << 3)
+    if "eac" in variant:
+        offs = [0, 8] if variant.endswith("rg11") else [0]
+        for k in (1, 7):
+            b[e[k], 1] &= 0x0F
+            b[e[k], offs[-1] + 1] &= 0x0F
+        b[e[6], offs[0]] = 0x80
+        b[e[5], offs[-1]] = 0x80
+        b[e[4], offs[0]] = 0x7F
+    return b
+
+
 def _wrapper(variant: str):
     _, module, name, _, _ = _VARIANTS[variant]
     return getattr(module, name)
@@ -358,14 +447,32 @@ def _plain_versions():
             setattr(_VARIANTS[v][1], _VARIANTS[v][2], fn)
 
 
+_TEXTURE_MODULES = (bc, rgtc, etc, eac)
+
+
 def _reset_counts() -> None:
-    for counts in (bc.KERNEL_LAUNCHES, rgtc.KERNEL_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for module in _TEXTURE_MODULES:
+        for k in module.KERNEL_LAUNCHES:
+            module.KERNEL_LAUNCHES[k] = 0
 
 
 def _counts() -> dict:
-    return {**bc.KERNEL_LAUNCHES, **rgtc.KERNEL_LAUNCHES}
+    return {k: v for m in _TEXTURE_MODULES
+            for k, v in m.KERNEL_LAUNCHES.items()}
+
+
+def _blocks(variant: str, n: int, rng) -> np.ndarray:
+    """n blocks of a texture-path variant with forced branches."""
+    if _VARIANTS[variant][1] in (etc, eac):
+        return etc_branch_blocks(variant, n, rng)
+    return _branch_blocks(variant, n, rng)
+
+
+def _settings(variant: str):
+    """(mode_mask, flags) settings a variant's kernel is checked under."""
+    if _VARIANTS[variant][1] in (etc, eac):
+        return _ETC_SETTINGS
+    return tuple((_FULL, fl) for fl in _FLAGS)
 
 
 def _bc_golden_phase() -> dict:
@@ -379,26 +486,29 @@ def _bc_compare_phase(blocks: dict) -> dict:
     errs = {}
     for variant, b in blocks.items():
         words = _words(b)
-        errs[variant] = max(_compare(words, _FULL, fl, _wrapper(variant),
+        errs[variant] = max(_compare(words, mm, fl, _wrapper(variant),
                                      _plain(variant), variant)
-                            for fl in _FLAGS)
-    print(f"bits: the 4 texture kernels bit-exact (tolerance 0) vs their "
-          f"plain versions on the card, {_N_BIG} blocks x flags "
-          f"{list(_FLAGS)} for each of the {len(blocks)} variants, forced "
-          f"branches and invalid blocks included")
+                            for mm, fl in _settings(variant))
+    print(f"bits: the {len(set(v[0] for v in _VARIANTS.values()))} texture "
+          f"kernels bit-exact (tolerance 0) vs their plain versions on the "
+          f"card, {_N_BIG} blocks for each of the {len(blocks)} variants, "
+          f"forced branches and invalid blocks included, x flags "
+          f"{list(_FLAGS)} (BC/RGTC), x (mode_mask, flags) "
+          f"{[(hex(m), f) for m, f in _ETC_SETTINGS]} (ETC/EAC)")
     return errs
 
 
 def _texture_calls(variant: str, blocks: np.ndarray):
     """(label, texture, pixel format) of the texture path for a variant:
     the 4096 x 4096 texture in its native format, to BGRA8 for the RGBA8
-    families, and cropped to 4093 x 4090 for BC1 and RGTC2."""
+    and RGBX8 families, and cropped to 4093 x 4090 for BC1, RGTC2,
+    ETC2_EAC and EAC_R11."""
     fmt = F.BY_NAME[_VARIANTS[variant][3]].fmt
     tex = Texture.new(fmt, blocks, _TEX, _TEX)
     calls = [("native", tex, None)]
     if F.texture_pixel_format(fmt) in (F.RGBA8, F.RGBX8):
         calls.append(("BGRA8", tex, F.BGRA8))
-    if variant in ("bc1", "rgtc2"):
+    if variant in ("bc1", "rgtc2", "etc2_eac", "eac_r11"):
         # (_TEX - 3) x (_TEX - 6) takes _TEX/4 x (_TEX/4 - 1) blocks.
         crop = Texture.new(fmt, blocks[:_N_BIG - _TEX // 4], _TEX - 3,
                            _TEX - 6)
@@ -455,27 +565,31 @@ def _texture_path(blocks: dict, smi: str) -> dict:
     return launches
 
 
-def _cli_path(blocks: dict) -> dict:
-    """dtx-convert -d on a 4096^2 BC3 .ktx written with save_ktx, against
-    the same run with the plain versions.  Returns its launch counts."""
-    with tempfile.TemporaryDirectory() as tmp:
-        src = Path(tmp) / "in.ktx"
-        tio.save_ktx([Texture.new(F.BC3, blocks["bc3"], _TEX, _TEX)],
-                     str(src))
-        _reset_counts()
-        cli_convert.main(["-q", "-d", str(src), str(Path(tmp) / "k.ktx")])
-        launches = _counts()
-        with _plain_versions():
+def _cli_path(blocks: dict) -> None:
+    """dtx-convert -d on a 4096^2 BC3, ETC2_EAC and EAC_RG11 .ktx written
+    with save_ktx, each against the same run with the plain versions and
+    with one launch of its kernel and no other."""
+    for variant in ("bc3", "etc2_eac", "eac_rg11"):
+        family = _VARIANTS[variant][3]
+        with tempfile.TemporaryDirectory() as tmp:
+            src = Path(tmp) / "in.ktx"
+            tio.save_ktx([Texture.new(F.BY_NAME[family].fmt, blocks[variant],
+                                      _TEX, _TEX)], str(src))
+            _reset_counts()
             cli_convert.main(["-q", "-d", str(src),
-                              str(Path(tmp) / "p.ktx")])
-        k = (Path(tmp) / "k.ktx").read_bytes()
-        p = (Path(tmp) / "p.ktx").read_bytes()
-    if launches["bc3"] != 1 or k != p:
-        raise AssertionError(f"CLI: launches {launches}, outputs equal "
-                             f"{k == p}")
-    print(f"cli: dtx-convert -d on a {_TEX}x{_TEX} BC3 .ktx ({len(k)} B out) "
-          f"byte-equal to the plain run; bc3 kernel launches 1")
-    return launches
+                              str(Path(tmp) / "k.ktx")])
+            launches = _counts()
+            with _plain_versions():
+                cli_convert.main(["-q", "-d", str(src),
+                                  str(Path(tmp) / "p.ktx")])
+            k = (Path(tmp) / "k.ktx").read_bytes()
+            p = (Path(tmp) / "p.ktx").read_bytes()
+        if launches[variant] != 1 or sum(launches.values()) != 1 or k != p:
+            raise AssertionError(f"CLI {family}: launches {launches}, "
+                                 f"outputs equal {k == p}")
+        print(f"cli: dtx-convert -d on a {_TEX}x{_TEX} {family} .ktx "
+              f"({len(k)} B out) byte-equal to the plain run; {variant} "
+              f"kernel launches 1")
 
 
 def _bc_timing(blocks: dict) -> dict:
@@ -499,6 +613,36 @@ def _bc_timing(blocks: dict) -> dict:
                   f"plain {p1:.5f} / {p2:.5f} ms per call; kernel "
                   f"{moved / (min(k1, k2) * 1e6):.4g} GB/s moved")
     return times
+
+
+def _device_us(blocks: dict) -> dict:
+    """Device time per launch of each variant's kernel at N = 1,048,576,
+    from torch.profiler's CUDA activity over 10 launches (None where the
+    profiler records no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for variant, b in blocks.items():
+        words, fn = _words(b), _wrapper(variant)
+        fn(words)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn(words)
+            torch.cuda.synchronize()
+        kernel = _VARIANTS[variant][0].replace("_decode", "_kernel")
+        us = [getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0)
+              for e in prof.key_averages() if kernel + "<" in e.key
+              or kernel + "(" in e.key]
+        out[variant] = sum(us) / 10 if us and sum(us) else None
+        out_words = fn(words[:1])[0].shape[1]
+        moved = _N_BIG * (4 * words.shape[1] + 4 * out_words + 1)
+        print(f"device: {variant} N={_N_BIG}: " + (
+            "not measured (no kernel in the profile)" if out[variant] is None
+            else f"{out[variant]:.2f} us per launch, "
+                 f"{moved / out[variant] / 1e6:.3f} TB/s moved"))
+    return out
 
 
 def _texture_breakdown(blocks: dict, smi: str) -> None:
@@ -544,24 +688,35 @@ def _texture_breakdown(blocks: dict, smi: str) -> None:
               f"({_N_BIG / wall * 1e3:.4g} blocks/s) on {smi}")
 
 
+def _phase(name: str, fn, *args):
+    """fn(*args), printing its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def _texture_phase(rng, smi: str):
     """Goldens, kernel vs plain at N = 1,048,576, the texture path, the
     CLI and the timings.  Returns the kernels' JSON entries."""
-    errs = _bc_golden_phase()
-    blocks = {v: _branch_blocks(v, _N_BIG, rng) for v in _VARIANTS}
-    for v, e in _bc_compare_phase(blocks).items():
+    errs = _phase("texture goldens", _bc_golden_phase)
+    blocks = _phase("texture blocks", lambda: {
+        v: _blocks(v, _N_BIG, rng) for v in _VARIANTS})
+    for v, e in _phase("texture kernel vs plain", _bc_compare_phase,
+                       blocks).items():
         errs[v] = max(errs[v], e)
-    launches = _texture_path(blocks, smi)
-    _cli_path(blocks)
-    _texture_breakdown(blocks, smi)
-    times = _bc_timing(blocks)
+    launches = _phase("texture path", _texture_path, blocks, smi)
+    _phase("cli", _cli_path, blocks)
+    _phase("texture breakdown", _texture_breakdown, blocks, smi)
+    times = _phase("texture timing", _bc_timing, blocks)
+    device_us = _phase("texture device time", _device_us, blocks)
     entries = []
-    for kernel, replaces in _REPLACES.items():
+    for kernel, (source, replaces) in _REPLACES.items():
         variants = [v for v in _VARIANTS if _VARIANTS[v][0] == kernel]
         first = variants[0]
         entries.append({
-            "name": kernel, "route": "cuda",
-            "source": "detex_tpu_torch/csrc/bc.cu", "replaces": replaces,
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
             "launches": sum(launches[v] for v in variants),
             "max_abs_err": max(errs[v] for v in variants),
             "ms": times[(first, _N_BIG)][0],
@@ -570,18 +725,21 @@ def _texture_phase(rng, smi: str):
                 "launches": launches[v], "max_abs_err": errs[v],
                 "ms": times[(v, _N_BIG)][0],
                 "plain_ms": times[(v, _N_BIG)][1],
+                "device_us": device_us[v],
                 "ms_n4096": times[(v, 4096)][0],
                 "plain_ms_n4096": times[(v, 4096)][1]} for v in variants}})
     return entries
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     smi = _device()
-    _build_kernels()
+    _phase("build", _build_kernels)
     rng = np.random.default_rng(_SEED)
-    timing = _kernel_phase(rng)
-    launches = _main_path(rng, smi)
+    timing = _phase("bc7 kernel", _kernel_phase, rng)
+    launches = _phase("control step", _main_path, rng, smi)
     texture_kernels = _texture_phase(rng, smi)
+    print(f"phase all: {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"kernels": [{
         "name": "bc7_decode", "route": "cuda",
         "source": "detex_tpu_torch/csrc/bc7.cu",

@@ -44,16 +44,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
-template <int kWords>
-__device__ __forceinline__ void store(uint4* dst, const uint32_t* out) {
-#pragma unroll
-  for (int q = 0; q < kWords / 4; ++q) {
-    dst[q] = make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
-                        out[4 * q + 3]);
-  }
-}
+using dtx::grid;
+using dtx::kThreads;
+using dtx::store_words;
 
 template <bool kAlpha>
 __global__ void __launch_bounds__(kThreads)
@@ -64,7 +57,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint2 w = words[i];
   uint32_t out[16];
   const bool ok = dtx::bc1_decode_block<kAlpha>(w.x, w.y, flags, out);
-  store<16>(pixels + 4 * i, out);
+  store_words<16>(pixels + 4 * i, out);
   valid[i] = ok;
 }
 
@@ -78,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t out[16];
   const bool ok = dtx::bc23_decode_block<kBC3>(w.x, w.y, w.z, w.w, flags,
                                                out);
-  store<16>(pixels + 4 * i, out);
+  store_words<16>(pixels + 4 * i, out);
   valid[i] = ok;
 }
 
@@ -92,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint2 w = words[i];
   uint32_t out[kOut];
   const bool ok = dtx::rgtc1_decode_block<kSigned>(w.x, w.y, out);
-  store<kOut>(pixels + (kOut / 4) * i, out);
+  store_words<kOut>(pixels + (kOut / 4) * i, out);
   valid[i] = ok;
 }
 
@@ -106,12 +99,8 @@ __global__ void __launch_bounds__(kThreads)
   const uint4 w = words[i];
   uint32_t out[kOut];
   const bool ok = dtx::rgtc2_decode_block<kSigned>(w.x, w.y, w.z, w.w, out);
-  store<kOut>(pixels + (kOut / 4) * i, out);
+  store_words<kOut>(pixels + (kOut / 4) * i, out);
   valid[i] = ok;
-}
-
-unsigned int grid(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace

@@ -31,7 +31,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+using dtx::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
     bc7_kernel(const uint4* __restrict__ words, long long n,
@@ -44,12 +44,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint64_t hi = (uint64_t)w.z | ((uint64_t)w.w << 32);
   uint32_t out[16];
   const bool ok = dtx::bc7_decode_block(lo, hi, mode_mask, flags, out);
-  uint4* dst = pixels + 4 * i;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dst[q] = make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
-                        out[4 * q + 3]);
-  }
+  dtx::store_words<16>(pixels + 4 * i, out);
   valid[i] = ok;
 }
 
@@ -61,8 +56,7 @@ extern "C" int dtx_bc7_decode(const void* words, long long n,
                               unsigned int mode_mask, unsigned int flags,
                               void* pixels, void* valid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  bc7_kernel<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  bc7_kernel<<<dtx::grid(n), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), n, mode_mask, flags,
       static_cast<uint4*>(pixels), static_cast<bool*>(valid));
   return (int)cudaGetLastError();

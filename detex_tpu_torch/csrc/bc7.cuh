@@ -23,23 +23,6 @@
 
 #include "dtx_hd.cuh"
 
-// A 64-entry uint32 table, visible to the device pass as read-only global
-// memory and to the host pass as a plain array.
-#if defined(__CUDACC__)
-#define DTX_TABLE(name, ...)                                  \
-  __device__ const uint32_t name##_dev[64] = {__VA_ARGS__};   \
-  static const uint32_t name##_host[64] = {__VA_ARGS__};
-#else
-#define DTX_TABLE(name, ...) \
-  static const uint32_t name##_host[64] = {__VA_ARGS__};
-#endif
-
-#if defined(__CUDA_ARCH__)
-#define DTX_LOOKUP(name, i) __ldg(&name##_dev[i])
-#else
-#define DTX_LOOKUP(name, i) (name##_host[i])
-#endif
-
 namespace dtx {
 
 // Subset id of each pixel, 2 bits per pixel (pixel i at bits 2i..2i+1), for

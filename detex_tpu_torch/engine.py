@@ -36,7 +36,7 @@ import torch
 from detex_tpu import convert as C
 from detex_tpu import formats as F
 from detex_tpu.texture import Texture
-from detex_tpu_torch.ops import bc, bptc, rgtc
+from detex_tpu_torch.ops import bc, bptc, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 
 _FULL = 0xFFFFFFFF
@@ -64,16 +64,19 @@ _DECODERS = {
     F.IDX_RGTC2: (rgtc, "decode_rgtc2", "p8x2"),
     F.IDX_SIGNED_RGTC2: (rgtc, "decode_signed_rgtc2", "p16x2"),
     F.IDX_BPTC: (bptc, "decode_bptc", "u32"),
+    F.IDX_ETC1: (etc, "decode_etc1", "u32"),
+    F.IDX_ETC2: (etc, "decode_etc2", "u32"),
+    F.IDX_ETC2_PUNCHTHROUGH: (etc, "decode_etc2_punchthrough", "u32"),
+    F.IDX_ETC2_EAC: (etc, "decode_etc2_eac", "u32"),
+    F.IDX_EAC_R11: (eac, "decode_eac_r11", "p16"),
+    F.IDX_EAC_SIGNED_R11: (eac, "decode_eac_signed_r11", "p16"),
+    F.IDX_EAC_RG11: (eac, "decode_eac_rg11", "p16x2"),
+    F.IDX_EAC_SIGNED_RG11: (eac, "decode_eac_signed_rg11", "p16x2"),
 }
 
 # compressed-format index -> row of the TPU kernel table in PERF.md whose
 # port the family waits for.
-_NOT_PORTED = {
-    F.IDX_ETC1: 6, F.IDX_ETC2: 7, F.IDX_ETC2_PUNCHTHROUGH: 8,
-    F.IDX_ETC2_EAC: 9, F.IDX_EAC_R11: 10, F.IDX_EAC_SIGNED_R11: 10,
-    F.IDX_EAC_RG11: 11, F.IDX_EAC_SIGNED_RG11: 11, F.IDX_BPTC_FLOAT: 12,
-    F.IDX_BPTC_SIGNED_FLOAT: 12,
-}
+_NOT_PORTED = {F.IDX_BPTC_FLOAT: 12, F.IDX_BPTC_SIGNED_FLOAT: 12}
 
 # 8-bit, 4-lane formats whose mutual conversions are no-ops and R/B swaps
 # (convert.c:768-778).

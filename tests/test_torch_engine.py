@@ -1,12 +1,13 @@
 """The port's texture engine and dtx-convert CLI (detex_tpu_torch.engine,
 detex_tpu_torch.cli.convert) against the JAX package's
 (detex_tpu.engine with backend="jax", detex_tpu.cli.convert --backend
-jax) and the golden textures, bit-exact, for the 8 BC/RGTC variants, run
-on the CPU through the kernels' plain versions.
+jax) and the golden textures, bit-exact, for the 8 BC/RGTC and the 8
+ETC/EAC variants, run on the CPU through the kernels' plain versions.
 
 The `corpus_dir` fixture writes each family's 64x64 corpus texture from
 tests/golden/<FAMILY>.npz as test-texture-<FAMILY>.ktx with
-detex_tpu.io.save_ktx, so these tests need nothing outside the repo.
+detex_tpu.io.save_ktx (EAC_SIGNED_RG11, whose golden has no corpus, gets a
+random one), so these tests need nothing outside the repo.
 
 Tests marked `cuda` run the engine on a card and skip here; the card's
 machine has no JAX, so this module imports the JAX package only inside
@@ -31,14 +32,27 @@ from detex_tpu_torch.cli import convert as port_cli
 
 _REPO = Path(__file__).resolve().parent.parent
 _GOLDEN_DIR = _REPO / "tests" / "golden"
+_FULL = 0xFFFFFFFF
 _FAMILIES = ["BC1", "BC1A", "BC2", "BC3", "RGTC1", "SIGNED_RGTC1", "RGTC2",
-             "SIGNED_RGTC2"]
-_UNSIGNED = [f for f in _FAMILIES if not f.startswith("SIGNED")]
+             "SIGNED_RGTC2", "ETC1", "ETC2", "ETC2_PUNCHTHROUGH", "ETC2_EAC",
+             "EAC_R11", "EAC_SIGNED_R11", "EAC_RG11", "EAC_SIGNED_RG11"]
+_UNSIGNED = [f for f in _FAMILIES if "SIGNED" not in f]
+# Families whose golden holds the decoded 64x64 corpus texture.
+_WITH_TEXTURE = [f for f in _FAMILIES
+                 if "texture_native" in np.load(_GOLDEN_DIR / f"{f}.npz")]
 # Target pixel formats: the decoded format (None), RGBA8 and BGRA8.
 _TARGETS = {"native": None, "RGBA8": F.RGBA8, "BGRA8": F.BGRA8}
-# Flags that invalidate some blocks of each family (0 where none can).
-_INVALIDATING = {"BC1": 0, "BC1A": 0x2, "BC2": 0x1, "BC3": 0x3, "RGTC1": 0,
-                 "SIGNED_RGTC1": 0, "RGTC2": 0, "SIGNED_RGTC2": 0}
+# (mode_mask, flags) that invalidate some blocks of each family (the full
+# mask and flags 0 where nothing can).
+_INVALIDATING = {"BC1": (_FULL, 0), "BC1A": (_FULL, 0x2),
+                 "BC2": (_FULL, 0x1), "BC3": (_FULL, 0x3),
+                 "RGTC1": (_FULL, 0), "SIGNED_RGTC1": (_FULL, 0),
+                 "RGTC2": (_FULL, 0), "SIGNED_RGTC2": (_FULL, 0),
+                 "ETC1": (0x1, 0), "ETC2": (0x1A, 0),
+                 "ETC2_PUNCHTHROUGH": (_FULL, 0x4), "ETC2_EAC": (_FULL, 0x1),
+                 "EAC_R11": (_FULL, 0), "EAC_SIGNED_R11": (_FULL, 0),
+                 "EAC_RG11": (_FULL, 0), "EAC_SIGNED_RG11": (_FULL, 0)}
+_ALWAYS_VALID = ("BC1", "RGTC1", "RGTC2", "EAC_R11", "EAC_RG11")
 
 
 def _golden(family):
@@ -51,23 +65,30 @@ def _fmt(family):
 
 def _corpus_texture(family, width=None, height=None):
     """The golden corpus texture, or a width x height crop built from the
-    first of its blocks (partial edge blocks included)."""
+    first of its blocks (partial edge blocks included).  A family whose
+    golden has no corpus (EAC_SIGNED_RG11) takes its random blocks, 64x64
+    by default."""
     g = _golden(family)
-    width = width or int(g["width"])
-    height = height or int(g["height"])
+    blocks = g["corpus_blocks"] if "corpus_blocks" in g else \
+        g["random_blocks"]
+    width = width or (int(g["width"]) if "width" in g else 64)
+    height = height or (int(g["height"]) if "height" in g else 64)
     n = ((width + 3) // 4) * ((height + 3) // 4)
-    return Texture.new(_fmt(family), g["corpus_blocks"][:n], width, height)
+    return Texture.new(_fmt(family), blocks[:n], width, height)
 
 
 def _random_texture(family, width, height, seed):
     """A texture of random blocks; in signed RGTC every 7th block starts
-    with the invalid endpoint pair (-127, -128)."""
+    with the invalid endpoint pair (-127, -128), in signed EAC with the
+    invalid base -128."""
     rng = np.random.default_rng(seed)
     n = ((width + 3) // 4) * ((height + 3) // 4)
     bs = F.block_size_bytes(_fmt(family))
     blocks = rng.integers(0, 256, (n, bs), np.uint8)
     if family.startswith("SIGNED"):
         blocks[::7, :2] = (0x81, 0x80)
+    if family.startswith("EAC_SIGNED"):
+        blocks[::7, 0] = 0x80
     return Texture.new(_fmt(family), blocks, width, height)
 
 
@@ -102,7 +123,8 @@ def _outcome(fn):
 @pytest.mark.parametrize("family", _FAMILIES)
 def test_decode_blocks_vs_jax(jx, family):
     g = _golden(family)
-    for blocks in (g["corpus_blocks"], g["random_blocks"]):
+    for blocks in (g[k] for k in ("corpus_blocks", "random_blocks")
+                   if k in g):
         for flags in (0, 1, 2, 4):
             out0, v0 = jx.engine.decode_blocks(_fmt(family), blocks,
                                                flags=flags, backend="jax")
@@ -128,9 +150,9 @@ def test_decode_blocks_native_backend(family):
 def test_decode_blocks_device_payload_widths(family):
     """The packed payload of each packer kind is the true pixel size:
     16 pixels * pixel size bytes per block."""
-    g = _golden(family)
+    blocks = _corpus_texture(family).data.reshape(256, -1)
     words = torch.from_numpy(
-        np.ascontiguousarray(g["corpus_blocks"]).view(np.int32).copy())
+        np.ascontiguousarray(blocks).view(np.int32).copy())
     pix, valid = engine.decode_blocks_device(_fmt(family), words)
     ps = F.pixel_size(F.texture_pixel_format(_fmt(family)))
     kind = engine._DECODERS[F.compressed_index(_fmt(family))][2]
@@ -196,27 +218,29 @@ def test_tiled_vs_jax(jx, family, target, backend):
 def test_invalid_blocks_zeroed(jx, family, backend):
     """Invalid blocks come out zero in the target format, as in JAX."""
     tex = _random_texture(family, 62, 34, seed=len(family))
-    flags = _INVALIDATING[family]
-    want = jx.engine.decompress_texture_linear(tex, flags=flags,
-                                               backend="jax")
-    got = engine.decompress_texture_linear(tex, flags=flags,
-                                           backend=backend, device="cpu")
+    mode_mask, flags = _INVALIDATING[family]
+    want = jx.engine.decompress_texture_linear(tex, mode_mask=mode_mask,
+                                               flags=flags, backend="jax")
+    got = engine.decompress_texture_linear(tex, mode_mask=mode_mask,
+                                           flags=flags, backend=backend,
+                                           device="cpu")
     np.testing.assert_array_equal(got, want)
     blocks = tex.data.reshape(tex.n_blocks, -1)
-    _, valid = engine.decode_blocks(tex.format, blocks, flags=flags,
+    _, valid = engine.decode_blocks(tex.format, blocks, mode_mask, flags,
                                     device="cpu")
-    if family in ("BC1", "RGTC1", "RGTC2"):
+    if family in _ALWAYS_VALID:
         assert valid.all()
     else:
         assert not valid.all()
         tiles = engine.decompress_texture_tiled(
-            tex, flags=flags, backend=backend, device="cpu")
+            tex, mode_mask=mode_mask, flags=flags, backend=backend,
+            device="cpu")
         tiles = tiles.reshape(tex.n_blocks, -1)
         assert not tiles[~valid].any() and tiles[valid].any()
 
 
 @pytest.mark.parametrize("backend", ["torch", "device"])
-@pytest.mark.parametrize("family", _FAMILIES)
+@pytest.mark.parametrize("family", _WITH_TEXTURE)
 def test_golden_textures(family, backend):
     g = _golden(family)
     tex = _corpus_texture(family)
@@ -224,8 +248,8 @@ def test_golden_textures(family, backend):
                                            device="cpu")
     np.testing.assert_array_equal(got, g["texture_native"])
     assert engine.LAST_BACKEND == backend
-    if "texture_rgba8" in g and (backend == "torch" or family in
-                                 ("BC1", "BC1A", "BC2", "BC3")):
+    if "texture_rgba8" in g and (backend == "torch" or F.texture_pixel_format(
+            tex.format) in (F.RGBA8, F.RGBX8)):
         got = engine.decompress_texture_linear(tex, F.RGBA8, backend=backend,
                                                device="cpu")
         np.testing.assert_array_equal(got, g["texture_rgba8"])
@@ -233,7 +257,7 @@ def test_golden_textures(family, backend):
 
 def test_device_backend_raises_where_not_ported():
     """No device conversion outside the packed 32-bit family, and no
-    kernel for ETC1 yet: both raise, nothing falls back, and LAST_BACKEND
+    kernel for BC6H yet: both raise, nothing falls back, and LAST_BACKEND
     keeps the last call that succeeded."""
     engine.decompress_texture_linear(_corpus_texture("BC1"), backend="torch",
                                      device="cpu")
@@ -245,10 +269,10 @@ def test_device_backend_raises_where_not_ported():
     with pytest.raises(C.ConversionError):
         engine.decompress_texture_tiled(rgtc1, F.RGBA8, backend="device",
                                         device="cpu")
-    etc1 = Texture.new(F.ETC1, np.zeros(16 * 8, np.uint8), 16, 16)
+    bc6h = Texture.new(F.BPTC_FLOAT, np.zeros(16 * 16, np.uint8), 16, 16)
     for backend in ("device", "torch"):
-        with pytest.raises(NotImplementedError, match="row 6"):
-            engine.decompress_texture_linear(etc1, backend=backend,
+        with pytest.raises(NotImplementedError, match="row 12"):
+            engine.decompress_texture_linear(bc6h, backend=backend,
                                              device="cpu")
     with pytest.raises(NotImplementedError, match="row 12"):
         engine.decode_blocks(F.BPTC_FLOAT, np.zeros((4, 16), np.uint8),
@@ -314,10 +338,11 @@ def test_cli_decompress_ktx_vs_jax(jx, corpus_dir, tmp_path, family):
 
 @pytest.mark.parametrize("family", _UNSIGNED)
 def test_cli_decompress_png_vs_jax(jx, corpus_dir, tmp_path, family):
-    """RG8 (RGTC2) has no PNG form: both CLIs raise the same error."""
+    """RG8 (RGTC2) and RG16 (EAC_RG11) have no PNG form: both CLIs raise
+    the same error."""
     port, ref = _cli_pair(jx, corpus_dir / f"test-texture-{family}.ktx",
                           tmp_path, "png")
-    if family == "RGTC2":
+    if family in ("RGTC2", "EAC_RG11"):
         assert port is ref is tio.TextureFileError
     else:
         assert isinstance(port, bytes) and port == ref
@@ -366,13 +391,13 @@ def cuda():
 @pytest.mark.parametrize("family", _FAMILIES)
 def test_cuda_engine_vs_cpu(cuda, family):
     tex = _random_texture(family, 253, 190, seed=7)
-    flags = _INVALIDATING[family]
+    mode_mask, flags = _INVALIDATING[family]
     for pf in (None, F.BGRA8):
         for fn in (engine.decompress_texture_linear,
                    engine.decompress_texture_tiled):
-            want = _outcome(lambda: fn(tex, pf, flags=flags,
+            want = _outcome(lambda: fn(tex, pf, mode_mask, flags,
                                        backend="device", device="cpu"))
-            got = _outcome(lambda: fn(tex, pf, flags=flags,
+            got = _outcome(lambda: fn(tex, pf, mode_mask, flags,
                                       backend="device", device=cuda))
             if isinstance(want, type):
                 assert got is want
@@ -382,7 +407,7 @@ def test_cuda_engine_vs_cpu(cuda, family):
 
 @pytest.mark.cuda
 def test_cuda_golden_textures(cuda):
-    for family in _FAMILIES:
+    for family in _WITH_TEXTURE:
         got = engine.decompress_texture_linear(_corpus_texture(family),
                                                backend="device", device=cuda)
         np.testing.assert_array_equal(got, _golden(family)["texture_native"])
