@@ -10,15 +10,21 @@ all at once) and drives the port's two paths:
     through the full-width control step (ControllerConfig(): 64x64 BC7
     observation, 8192 x 32 MPPI rollouts, bf16) by a Controller;
   * the texture engine: the BC1/BC1A, BC2/BC3, RGTC1 and RGTC2 (signed
-    and unsigned) kernels and the ETC1/ETC2/ETC2 punchthrough, ETC2_EAC,
-    EAC R11 and RG11 (signed and unsigned) kernels held bit-exact against
-    the goldens and against their plain versions on 1,048,576 blocks with
-    forced branches under 4 flag settings (ETC/EAC also under 6 mode
-    masks), then one 4096x4096 texture per format (a 4K mip, 1,048,576
-    blocks) through engine.decompress_texture_linear(backend="device") and
-    a BC3, an ETC2_EAC and an EAC_RG11 .ktx through the dtx-convert CLI,
-    each byte-equal to the same call with the plain versions swapped in,
-    and every kernel timed against its plain version.
+    and unsigned) kernels, the ETC1/ETC2/ETC2 punchthrough, ETC2_EAC,
+    EAC R11 and RG11 (signed and unsigned) kernels and the BC6H kernel
+    (BPTC_FLOAT, signed and unsigned) held bit-exact against the goldens
+    and against their plain versions on 1,048,576 blocks with forced
+    branches under 4 flag settings (ETC/EAC also under 6 mode masks, BC6H
+    under 5 mode masks), then one 4096x4096 texture per format (a 4K mip,
+    1,048,576 blocks) through engine.decompress_texture_linear(
+    backend="device"), which decodes, converts the pixels and assembles on
+    the card, and a BC3, an ETC2_EAC, an EAC_RG11 and a BPTC_FLOAT .ktx
+    through the dtx-convert CLI, each byte-equal to the same call with the
+    plain versions swapped in; the calls that convert (BC6H to half float,
+    16-bit, 8-bit and HDR targets, RGTC1 and ETC2_EAC to other formats)
+    also byte-equal to the torch backend, which converts on the host; and
+    every kernel timed against its plain version, and the BC6H kernel on
+    mode-mixed, mode-sorted and single-mode batches.
 
 Each path's launch counts are set to 0 just before it and read just
 after.  Every phase raises on failure, so any failure exits non-zero.
@@ -45,14 +51,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from detex_tpu import convert as C
 from detex_tpu import formats as F
+from detex_tpu import hdr
 from detex_tpu import io as tio
 from detex_tpu.texture import Texture
 from detex_tpu_torch import _build, engine
+from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import runtime as R
-from detex_tpu_torch.ops import bc, bptc, eac, etc, rgtc
+from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 
 _REPO = Path(__file__).resolve().parent
@@ -66,6 +75,11 @@ _FLAGS = (0, 0x1, 0x2, 0x4)
 # ETC/EAC: the flags at the full mode mask, then mode masks at flags 0.
 _ETC_SETTINGS = tuple((_FULL, fl) for fl in _FLAGS) + tuple(
     (mm, 0) for mm in (0x1, 0x2, 0x4, 0x8, 0x10, 0x1A))
+# BC6H: all 14 modes, every other mode (two ways), one mode of each size.
+_BC6H_SETTINGS = tuple((mm, 0) for mm in (0x3FFF, 0x2AAA, 0x1555, 0x1000,
+                                          0x2000))
+# The HDR parameters of the HDR texture call: gamma 2.2, range [0, 4].
+_HDR = (2.2, 0.0, 4.0)
 
 # The texture path's variants: kernel, module, wrapper, golden family,
 # block bytes.
@@ -91,6 +105,11 @@ _VARIANTS = {
     "eac_rg11": ("eac_rg11_decode", eac, "decode_eac_rg11", "EAC_RG11", 16),
     "eac_signed_rg11": ("eac_rg11_decode", eac, "decode_eac_signed_rg11",
                         "EAC_SIGNED_RG11", 16),
+    "bptc_float": ("bc6h_decode", bptc_float, "decode_bptc_float",
+                   "BPTC_FLOAT", 16),
+    "bptc_signed_float": ("bc6h_decode", bptc_float,
+                          "decode_bptc_signed_float", "BPTC_SIGNED_FLOAT",
+                          16),
 }
 # kernel -> (its source, the TPU kernel it replaces)
 _BC_CU = "detex_tpu_torch/csrc/bc.cu"
@@ -105,6 +124,8 @@ _REPLACES = {
     "etc2_eac_decode": (_ETC_CU, f"{_ETC_PALLAS}:533"),
     "eac_r11_decode": (_ETC_CU, f"{_ETC_PALLAS}:546"),
     "eac_rg11_decode": (_ETC_CU, f"{_ETC_PALLAS}:559"),
+    "bc6h_decode": ("detex_tpu_torch/csrc/bc6h.cu",
+                    "detex_tpu/ops/pallas/bptc_float_pallas.py:128"),
 }
 
 
@@ -135,7 +156,7 @@ def _build_kernels() -> float:
     kernel = "?"
     for line in (path.parent / "nvcc.log").read_text().splitlines():
         m = re.search(r"Function properties for .*?((?:bc7|bc1|bc23|rgtc1|"
-                      r"rgtc2|etc|etc2_eac|eac_r11|eac_rg11)_kernel)"
+                      r"rgtc2|etc|etc2_eac|eac_r11|eac_rg11|bc6h)_kernel)"
                       r"(?:IL([bi])(\d+)E)?", line)
         if m:
             flag = "" if not m.group(2) else \
@@ -424,6 +445,34 @@ def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     return b
 
 
+# Low bits of byte 0 of each BC6H mode (decompress-bptc-float.c:23-33):
+# modes 0 and 1 by their 2-bit code, 2-13 by their 5-bit one, then the 4
+# reserved 5-bit codes.
+_BC6H_CODES = ((0, 2), (1, 2)) + tuple((c, 5) for c in (
+    2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 23, 27, 31))
+
+
+def bc6h_mode_blocks(n: int, rng) -> np.ndarray:
+    """n random BC6H blocks whose mode code is drawn uniformly from the 14
+    modes and the 4 reserved codes (random bytes put half the blocks in
+    modes 0 and 1).  tests/test_torch_bptc_float.py draws its blocks here
+    too."""
+    b = rng.integers(0, 256, (n, 16), np.uint8)
+    pick = rng.integers(0, len(_BC6H_CODES), n)
+    code = np.array([c for c, _ in _BC6H_CODES], np.uint8)[pick]
+    keep = np.array([0xFF ^ ((1 << w) - 1) for _, w in _BC6H_CODES],
+                    np.uint8)[pick]
+    b[:, 0] = (b[:, 0] & keep) | code
+    return b
+
+
+def _bc6h_code_key(blocks: np.ndarray) -> np.ndarray:
+    """Each BC6H block's mode code: the 2-bit one for modes 0 and 1, else
+    the 5-bit one."""
+    b0 = blocks[:, 0]
+    return np.where((b0 & 2) == 0, b0 & 1, b0 & 0x1F)
+
+
 def _wrapper(variant: str):
     _, module, name, _, _ = _VARIANTS[variant]
     return getattr(module, name)
@@ -447,7 +496,7 @@ def _plain_versions():
             setattr(_VARIANTS[v][1], _VARIANTS[v][2], fn)
 
 
-_TEXTURE_MODULES = (bc, rgtc, etc, eac)
+_TEXTURE_MODULES = (bc, rgtc, etc, eac, bptc_float)
 
 
 def _reset_counts() -> None:
@@ -465,6 +514,8 @@ def _blocks(variant: str, n: int, rng) -> np.ndarray:
     """n blocks of a texture-path variant with forced branches."""
     if _VARIANTS[variant][1] in (etc, eac):
         return etc_branch_blocks(variant, n, rng)
+    if _VARIANTS[variant][1] is bptc_float:
+        return bc6h_mode_blocks(n, rng)
     return _branch_blocks(variant, n, rng)
 
 
@@ -472,6 +523,8 @@ def _settings(variant: str):
     """(mode_mask, flags) settings a variant's kernel is checked under."""
     if _VARIANTS[variant][1] in (etc, eac):
         return _ETC_SETTINGS
+    if _VARIANTS[variant][1] is bptc_float:
+        return _BC6H_SETTINGS
     return tuple((_FULL, fl) for fl in _FLAGS)
 
 
@@ -494,41 +547,101 @@ def _bc_compare_phase(blocks: dict) -> dict:
           f"card, {_N_BIG} blocks for each of the {len(blocks)} variants, "
           f"forced branches and invalid blocks included, x flags "
           f"{list(_FLAGS)} (BC/RGTC), x (mode_mask, flags) "
-          f"{[(hex(m), f) for m, f in _ETC_SETTINGS]} (ETC/EAC)")
+          f"{[(hex(m), f) for m, f in _ETC_SETTINGS]} (ETC/EAC), x mode "
+          f"masks {[hex(m) for m, _ in _BC6H_SETTINGS]} (BC6H)")
     return errs
 
 
 def _texture_calls(variant: str, blocks: np.ndarray):
-    """(label, texture, pixel format) of the texture path for a variant:
-    the 4096 x 4096 texture in its native format, to BGRA8 for the RGBA8
-    and RGBX8 families, and cropped to 4093 x 4090 for BC1, RGTC2,
-    ETC2_EAC and EAC_R11."""
+    """(label, texture, pixel format, HDR parameters) of the texture path
+    for a variant: the 4096 x 4096 texture in its native format, to BGRA8
+    for the RGBA8 and RGBX8 families, RGTC1 to RGBA8, ETC2_EAC to RGB8,
+    BPTC_FLOAT to FLOAT_RGB16, RGBX16, RGBA8 and, read as FLOAT_RGBX16_HDR
+    at gamma 2.2 and range [0, 4], to RGBX16; and cropped to 4093 x 4090
+    for BC1, RGTC2, ETC2_EAC, EAC_R11 and BPTC_FLOAT."""
     fmt = F.BY_NAME[_VARIANTS[variant][3]].fmt
     tex = Texture.new(fmt, blocks, _TEX, _TEX)
-    calls = [("native", tex, None)]
+    calls = [("native", tex, None, None)]
     if F.texture_pixel_format(fmt) in (F.RGBA8, F.RGBX8):
-        calls.append(("BGRA8", tex, F.BGRA8))
-    if variant in ("bc1", "rgtc2", "etc2_eac", "eac_r11"):
+        calls.append(("BGRA8", tex, F.BGRA8, None))
+    if variant == "rgtc1":
+        calls.append(("RGBA8", tex, F.RGBA8, None))
+    if variant == "etc2_eac":
+        calls.append(("RGB8", tex, F.RGB8, None))
+    if variant == "bptc_float":
+        for pf in (F.FLOAT_RGB16, F.RGBX16, F.RGBA8):
+            calls.append((F.format_name(pf), tex, pf, None))
+        calls.append(("HDR RGBX16", Texture.new(fmt | F.HDR, blocks, _TEX,
+                                                _TEX), F.RGBX16, _HDR))
+    if variant in ("bc1", "rgtc2", "etc2_eac", "eac_r11", "bptc_float"):
         # (_TEX - 3) x (_TEX - 6) takes _TEX/4 x (_TEX/4 - 1) blocks.
         crop = Texture.new(fmt, blocks[:_N_BIG - _TEX // 4], _TEX - 3,
                            _TEX - 6)
-        calls.append(("cropped", crop, None))
+        calls.append(("cropped", crop, None, None))
     return calls
 
 
+@contextlib.contextmanager
+def _hdr_parameters(params):
+    """detex_tpu.hdr's parameters set to `params` (gamma, range min, range
+    max) inside the block, and back to the defaults after it."""
+    if params is None:
+        yield
+        return
+    hdr.set_hdr_parameters(*params)
+    try:
+        yield
+    finally:
+        hdr.set_hdr_parameters(1.0, 0.0, 1.0)
+
+
+def _host_converted(tex: Texture, pf: int, params) -> np.ndarray:
+    """The torch backend's bytes for a texture call: decode on the card,
+    convert on the host with detex_tpu.convert.  At gamma != 1 the host
+    converter calls glibc powf once per lane (minutes for 67M lanes), so
+    there the converter runs once on each of the 65,536 half-float values
+    and the texture's lanes are looked up in its result: the same bytes,
+    since the conversion maps each 16-bit lane on its own."""
+    with _hdr_parameters(params):
+        if params is None or params[0] == 1.0:
+            return engine.decompress_texture_linear(tex, pf, backend="torch",
+                                                    device="cuda")
+        halves = np.arange(65536, dtype=np.uint16).view(np.uint8)
+        lut = C.convert_pixels(halves, 65536 // 4,
+                               F.texture_pixel_format(tex.format), pf) \
+            .view(np.uint16)
+    native, valid = engine.decode_blocks(
+        tex.format, tex.data.reshape(tex.n_blocks, tex.block_size),
+        device="cuda")
+    px = lut[native.view(np.uint16)].view(np.uint8)
+    tiles = np.where(valid[:, None], px, 0).astype(np.uint8)
+    return CD.to_bytes(engine._assemble(
+        torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1), tex))
+
+
+# Labels of the texture calls that convert other than by the identity or
+# an R/B swap; they are held to the torch backend too.
+_CONVERTING = ("RGBA8", "RGB8", "FLOAT_RGB16", "RGBX16", "HDR RGBX16")
+
+
 def _texture_path(blocks: dict, smi: str) -> dict:
-    """The slice's main path: every variant's 4096^2 texture through
-    engine.decompress_texture_linear(backend="device"), byte-equal to the
-    same calls with the plain versions.  Returns the launch counts."""
+    """The texture path: every variant's 4096^2 texture calls through
+    engine.decompress_texture_linear(backend="device"), each launching its
+    variant's kernel once and no other, byte-equal to the same calls with
+    the plain versions (which launch nothing); the BC6H calls and the
+    converting ones also byte-equal to the torch backend.  Returns the
+    launch counts."""
     calls = {v: _texture_calls(v, b) for v, b in blocks.items()}
     _reset_counts()
     outs, wall = {}, {}
     for variant, cs in calls.items():
-        for label, tex, pf in cs:
+        for label, tex, pf, params in cs:
+            before = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = engine.decompress_texture_linear(tex, pf, backend="device",
-                                                   device="cuda")
+            with _hdr_parameters(params):
+                out = engine.decompress_texture_linear(
+                    tex, pf, backend="device", device="cuda")
             wall[(variant, label)] = time.perf_counter() - t0
             outs[(variant, label)] = out
             if engine.LAST_BACKEND != "device":
@@ -538,38 +651,58 @@ def _texture_path(blocks: dict, smi: str) -> dict:
             if out.dtype != np.uint8 or out.shape != (want,):
                 raise AssertionError(f"{variant} {label}: bad output "
                                      f"{out.dtype} {out.shape}")
+            added = {k: n - before[k] for k, n in _counts().items()}
+            if added[variant] != 1 or sum(added.values()) != 1:
+                raise AssertionError(f"{variant} {label}: launches {added}")
     launches = _counts()
-    missing = [v for v in _VARIANTS if launches[v] == 0]
-    if missing:
-        raise AssertionError(f"texture path launched no kernel for "
-                             f"{missing}: {launches}")
     with _plain_versions():
         for variant, cs in calls.items():
-            for label, tex, pf in cs:
-                plain = engine.decompress_texture_linear(
-                    tex, pf, backend="device", device="cuda")
+            for label, tex, pf, params in cs:
+                with _hdr_parameters(params):
+                    plain = engine.decompress_texture_linear(
+                        tex, pf, backend="device", device="cuda")
                 if not np.array_equal(plain, outs[(variant, label)]):
                     raise AssertionError(f"{variant} {label}: kernel and "
                                          "plain texture bytes differ")
+    if _counts() != launches:
+        raise AssertionError("the plain versions launched kernels")
+    host_s = {}
+    for variant, cs in calls.items():
+        for label, tex, pf, params in cs:
+            if _VARIANTS[variant][1] is bptc_float or label in _CONVERTING:
+                t0 = time.perf_counter()
+                host = _host_converted(tex, pf, params)
+                host_s[(variant, label)] = time.perf_counter() - t0
+                if not np.array_equal(host, outs[(variant, label)]):
+                    raise AssertionError(f"{variant} {label}: device and "
+                                         "torch backends differ")
     print(f"main path (texture engine): {sum(map(len, calls.values()))} "
           f"decompress_texture_linear(backend='device') calls on "
-          f"{_TEX}x{_TEX} textures, byte-equal to the plain versions; "
-          f"launches {launches}")
+          f"{_TEX}x{_TEX} textures, one launch of their kernel each, "
+          f"byte-equal to the plain versions (no launches); {len(host_s)} "
+          f"of them byte-equal to the torch backend "
+          f"({', '.join(f'{v} {lb}' for v, lb in host_s)}); launches "
+          f"{launches}")
     for (variant, label), sec in wall.items():
         if label == "cropped":
             continue
+        host = host_s.get((variant, label))
         print(f"texture wall: {variant} {_TEX}x{_TEX} -> {label}: "
               f"{sec * 1e3:.3f} ms host bytes in to host bytes out, "
               f"{_N_BIG / sec:.4g} blocks/s (first call of its kind "
-              f"included) on {smi}")
+              f"included)" + ("" if host is None else
+                              f"; torch backend {host * 1e3:.1f} ms")
+              + f" on {smi}")
     return launches
 
 
 def _cli_path(blocks: dict) -> None:
-    """dtx-convert -d on a 4096^2 BC3, ETC2_EAC and EAC_RG11 .ktx written
-    with save_ktx, each against the same run with the plain versions and
-    with one launch of its kernel and no other."""
-    for variant in ("bc3", "etc2_eac", "eac_rg11"):
+    """dtx-convert -d (the device backend) on a 4096^2 BC3, ETC2_EAC,
+    EAC_RG11 and BPTC_FLOAT .ktx written with save_ktx, each against the
+    same run with the plain versions and with one launch of its kernel and
+    no other; BPTC_FLOAT (written as FLOAT_RGB16) also against
+    --backend torch."""
+    for variant in ("bc3", "etc2_eac", "eac_rg11", "bptc_float"):
         family = _VARIANTS[variant][3]
         with tempfile.TemporaryDirectory() as tmp:
             src = Path(tmp) / "in.ktx"
@@ -584,12 +717,19 @@ def _cli_path(blocks: dict) -> None:
                                   str(Path(tmp) / "p.ktx")])
             k = (Path(tmp) / "k.ktx").read_bytes()
             p = (Path(tmp) / "p.ktx").read_bytes()
-        if launches[variant] != 1 or sum(launches.values()) != 1 or k != p:
+            host = k
+            if variant == "bptc_float":
+                cli_convert.main(["-q", "-d", "--backend", "torch", str(src),
+                                  str(Path(tmp) / "h.ktx")])
+                host = (Path(tmp) / "h.ktx").read_bytes()
+        if launches[variant] != 1 or sum(launches.values()) != 1 or k != p \
+                or k != host:
             raise AssertionError(f"CLI {family}: launches {launches}, "
-                                 f"outputs equal {k == p}")
+                                 f"outputs equal {k == p} {k == host}")
         print(f"cli: dtx-convert -d on a {_TEX}x{_TEX} {family} .ktx "
-              f"({len(k)} B out) byte-equal to the plain run; {variant} "
-              f"kernel launches 1")
+              f"({len(k)} B out) byte-equal to the plain run"
+              + (" and to --backend torch" if variant == "bptc_float"
+                 else "") + f"; {variant} kernel launches 1")
 
 
 def _bc_timing(blocks: dict) -> dict:
@@ -647,10 +787,15 @@ def _device_us(blocks: dict) -> dict:
 
 def _texture_breakdown(blocks: dict, smi: str) -> None:
     """Where the time of one warm 4096^2 texture call goes, stage by stage
-    (host clock, synchronised after each stage), for a 64 B and a 16 B
-    output per block; then the whole call, median of 5."""
-    for variant in ("bc1", "rgtc1"):
+    (host clock, synchronised after each stage), for a 64 B, a 16 B and a
+    128 B output per block in the native format, for BC1 to BGRA8 (an R/B
+    swap) and for BPTC_FLOAT to RGBA8 (the viewer's format, three
+    conversion steps); then the whole call, median of 5."""
+    for variant, pf in (("bc1", None), ("bc1", F.BGRA8), ("rgtc1", None),
+                        ("bptc_float", None), ("bptc_float", F.RGBA8)):
         tex = _texture_calls(variant, blocks[variant])[0][1]
+        src = F.texture_pixel_format(tex.format)
+        dst = pf or src
         stages = {}
 
         def stage(name, fn):
@@ -667,25 +812,64 @@ def _texture_breakdown(blocks: dict, smi: str) -> None:
                 words_from_bytes(raw)))
             w = stage("host_to_device", lambda: w.cuda())
             pix, valid = stage("kernel", lambda: _wrapper(variant)(w))
+            conv = stage("convert", lambda: CD.convert_pixels_device(
+                pix.view(CD.repr_dtype(src)).reshape(
+                    _N_BIG * 16, CD.repr_lanes(src)), src, dst)
+                .reshape(_N_BIG, 16, -1))
             tiles = stage("zero_invalid", lambda: torch.where(
-                valid[:, None], pix.view(torch.uint8), 0))
-            ps = F.pixel_size(F.texture_pixel_format(tex.format))
-            img = stage("assemble", lambda: tiles.reshape(
-                _TEX // 4, _TEX // 4, 4, 4, ps).permute(0, 2, 1, 3, 4)
-                .reshape(_TEX, _TEX, ps).contiguous())
-            stage("device_to_host", lambda: img.cpu().numpy().ravel())
+                valid[:, None, None], conv, 0))
+            img = stage("assemble", lambda: engine._assemble(tiles, tex))
+            stage("device_to_host", lambda: CD.to_bytes(img))
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.decompress_texture_linear(tex, backend="device",
+            engine.decompress_texture_linear(tex, pf, backend="device",
                                              device="cuda")
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
-        print(f"texture breakdown: {variant} {_TEX}x{_TEX} native, warm, "
-              f"ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        print(f"texture breakdown: {variant} {_TEX}x{_TEX} -> "
+              f"{F.format_name(dst)}, warm, ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
               + f"; whole call median of 5 {wall:.3f} ms "
               f"({_N_BIG / wall * 1e3:.4g} blocks/s) on {smi}")
+
+
+def _bc6h_mode_timing(blocks: np.ndarray, smi: str, rounds: int = 7) -> dict:
+    """Mode-sorted decode, measured for BC6H: each variant's kernel time
+    per call (CUDA events, _time_ms) on the 1,048,576 texture blocks
+    (modes mixed), on the same blocks sorted by mode code, and on each of
+    14 batches that keep those blocks' bits but force one mode code.  Each
+    round times every batch once in a fresh random order, so clock and
+    power drift fall on all batches alike; a batch's time is its median
+    over the rounds.  Returns {variant: {batch: ms}}."""
+    batches = {"mixed": blocks,
+               "sorted": blocks[np.argsort(_bc6h_code_key(blocks),
+                                           kind="stable")]}
+    for m, (code, width) in enumerate(_BC6H_CODES[:14]):
+        b = blocks.copy()
+        b[:, 0] = (b[:, 0] & (0xFF ^ ((1 << width) - 1))) | code
+        batches[f"mode{m}"] = b
+    words = {k: _words(b) for k, b in batches.items()}
+    order = np.random.default_rng(_SEED)
+    out = {}
+    for variant in ("bptc_float", "bptc_signed_float"):
+        fn = _wrapper(variant)
+        ms = {k: [] for k in words}
+        for _ in range(rounds):
+            for k in order.permutation(list(words)):
+                w = words[k]
+                ms[k].append(_time_ms(lambda: fn(w), reps=5, inner=10))
+        out[variant] = {k: statistics.median(v) for k, v in ms.items()}
+        single = [out[variant][f"mode{m}"] for m in range(14)]
+        print(f"bc6h modes: {variant} N={_N_BIG}, ms per call, median of "
+              f"{rounds} shuffled rounds: mixed {out[variant]['mixed']:.5f} "
+              f"(rounds {min(ms['mixed']):.5f}-{max(ms['mixed']):.5f}), "
+              f"sorted {out[variant]['sorted']:.5f}, single modes "
+              f"{min(single):.5f}-{max(single):.5f} ("
+              + ", ".join(f"{m} {t:.5f}" for m, t in enumerate(single))
+              + f") on {smi}")
+    return out
 
 
 def _phase(name: str, fn, *args):
@@ -709,6 +893,7 @@ def _texture_phase(rng, smi: str):
     _phase("cli", _cli_path, blocks)
     _phase("texture breakdown", _texture_breakdown, blocks, smi)
     times = _phase("texture timing", _bc_timing, blocks)
+    _phase("bc6h mode batches", _bc6h_mode_timing, blocks["bptc_float"], smi)
     device_us = _phase("texture device time", _device_us, blocks)
     entries = []
     for kernel, (source, replaces) in _REPLACES.items():

@@ -100,11 +100,12 @@ def load_library() -> ctypes.CDLL:
                    ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # bc.cu, etc_eac.cu: (words, n, mode_mask, flags, variant, pixels,
-    # valid, stream).
+    # bc.cu, etc_eac.cu, bc6h.cu: (words, n, mode_mask, flags, variant,
+    # pixels, valid, stream).
     for name in ("dtx_bc1_decode", "dtx_bc23_decode", "dtx_rgtc1_decode",
                  "dtx_rgtc2_decode", "dtx_etc_decode", "dtx_etc2_eac_decode",
-                 "dtx_eac_r11_decode", "dtx_eac_rg11_decode"):
+                 "dtx_eac_r11_decode", "dtx_eac_rg11_decode",
+                 "dtx_bc6h_decode"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
                        ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,

@@ -12,7 +12,8 @@ messages (reference: detex-convert.c):
 Decompressed RGBX8 is saved as RGB8 and FLOAT_RGBX16 as FLOAT_RGB16
 because KTX/DDS don't carry X-padded formats (detex-convert.c:283-286).
 Decoding runs through detex_tpu_torch.engine on --device: the CUDA
-kernels on a card, their plain PyTorch versions on the CPU.
+kernels on a card, their plain PyTorch versions on the CPU; by default the
+pixel conversion and assembly run there too (--backend device).
 """
 
 from __future__ import annotations
@@ -53,12 +54,10 @@ def main(argv=None) -> int:
     p.add_argument("-i", "--input-format")
     p.add_argument("-d", "--decompress", action="store_true")
     p.add_argument("-q", "--quiet", action="store_true")
-    p.add_argument("--backend", choices=engine.BACKENDS, default="torch",
-                   help="decode backend: torch (decode on --device, "
-                        "convert on the host; the default until device "
-                        "pixel conversion is ported), device (decode, "
-                        "convert and assemble on --device; only identity "
-                        "and R/B-swap conversions, others fail), or "
+    p.add_argument("--backend", choices=engine.BACKENDS, default="device",
+                   help="decode backend: device (decode, convert and "
+                        "assemble on --device; the default), torch "
+                        "(decode on --device, convert on the host), or "
                         "native (multithreaded C++ host runtime)")
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (default cuda; cpu "

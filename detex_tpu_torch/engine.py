@@ -11,21 +11,23 @@ Layers:
       payload and valid flags, on the tensor's device
   decode_blocks        : (N, block bytes) u8 blocks -> per-block pixel
       bytes on the host, byte for byte the reference's pixel buffers
-  decompress_texture_linear / _tiled : the whole texture in a pixel format,
-      with partial edge blocks cropped and invalid blocks zero in the
-      target format (texture.c:90-93, 125-127)
+  decompress_texture_linear_device / _tiled_device : the whole texture,
+      decoded, converted (convert_device), zeroed and assembled on the
+      device, returned as a device tensor
+  decompress_texture_linear / _tiled : the whole texture in a pixel format
+      as host bytes, with partial edge blocks cropped and invalid blocks
+      zero in the target format (texture.c:90-93, 125-127)
 
 Backends of the texture calls:
-  "device": decode, zero and assemble on `device`; only the identity and
-      the R/B swaps among RGBA8, RGBX8, BGRA8 and BGRX8 convert there, any
-      other conversion raises ConversionError (device pixel conversion is
-      not ported yet);
+  "device": decode, convert, zero and assemble on `device`, then copy the
+      image to the host;
   "torch":  decode on `device`, convert with the host converter
       detex_tpu.convert.convert_pixels;
   "native": the multithreaded C++ host runtime, detex_tpu.native.
 The device is explicit: a CUDA device runs the CUDA kernels, the CPU runs
 their plain PyTorch versions, and nothing falls back from one to the other.
-Families whose kernel is not ported yet raise NotImplementedError.
+A format pair with no conversion path raises ConversionError on every
+backend.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch
 from detex_tpu import convert as C
 from detex_tpu import formats as F
 from detex_tpu.texture import Texture
-from detex_tpu_torch.ops import bc, bptc, eac, etc, rgtc
+from detex_tpu_torch import convert_device as CD
+from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 
 _FULL = 0xFFFFFFFF
@@ -54,6 +57,7 @@ LAST_BACKEND: str = ""
 #   p8x2 : (N, 8) words of 2 RG8 pixels
 #   p16  : (N, 8) words of 2 16-bit pixels
 #   p16x2: (N, 16) words of one R | G << 16 pixel
+#   p16x4: (N, 32) words, R | G << 16 then B | X << 16 per pixel
 _DECODERS = {
     F.IDX_BC1: (bc, "decode_bc1", "u32"),
     F.IDX_BC1A: (bc, "decode_bc1a", "u32"),
@@ -63,6 +67,9 @@ _DECODERS = {
     F.IDX_SIGNED_RGTC1: (rgtc, "decode_signed_rgtc1", "p16"),
     F.IDX_RGTC2: (rgtc, "decode_rgtc2", "p8x2"),
     F.IDX_SIGNED_RGTC2: (rgtc, "decode_signed_rgtc2", "p16x2"),
+    F.IDX_BPTC_FLOAT: (bptc_float, "decode_bptc_float", "p16x4"),
+    F.IDX_BPTC_SIGNED_FLOAT: (bptc_float, "decode_bptc_signed_float",
+                              "p16x4"),
     F.IDX_BPTC: (bptc, "decode_bptc", "u32"),
     F.IDX_ETC1: (etc, "decode_etc1", "u32"),
     F.IDX_ETC2: (etc, "decode_etc2", "u32"),
@@ -74,22 +81,9 @@ _DECODERS = {
     F.IDX_EAC_SIGNED_RG11: (eac, "decode_eac_signed_rg11", "p16x2"),
 }
 
-# compressed-format index -> row of the TPU kernel table in PERF.md whose
-# port the family waits for.
-_NOT_PORTED = {F.IDX_BPTC_FLOAT: 12, F.IDX_BPTC_SIGNED_FLOAT: 12}
-
-# 8-bit, 4-lane formats whose mutual conversions are no-ops and R/B swaps
-# (convert.c:768-778).
-_PACKED32 = frozenset({F.RGBA8, F.RGBX8, F.BGRA8, F.BGRX8})
-
-
 def _decoder(tex_fmt: int):
     """The decode wrapper of a compressed format."""
     idx = F.compressed_index(tex_fmt)
-    if idx in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{F.BY_FORMAT[tex_fmt].name} decode is not ported to the GPU "
-            f"yet (PERF.md TPU kernel table, row {_NOT_PORTED[idx]})")
     if idx not in _DECODERS:
         raise ValueError(f"not a compressed format: {tex_fmt:#x}")
     module, name, _ = _DECODERS[idx]
@@ -136,36 +130,56 @@ def decode_blocks(tex_fmt: int, blocks_u8: np.ndarray, mode_mask=_FULL,
     return out, valid.cpu().numpy()
 
 
-def _swap_on_device(src_fmt: int, dst_fmt: int) -> bool:
-    """Whether the device path swaps R and B to convert src_fmt to
-    dst_fmt; raises ConversionError where it has no such conversion."""
-    if src_fmt == dst_fmt:
-        return False
-    if src_fmt in _PACKED32 and dst_fmt in _PACKED32:
-        return F.is_bgr(src_fmt) != F.is_bgr(dst_fmt)
-    raise C.ConversionError(
-        f"conversion {F.format_name(src_fmt)} -> {F.format_name(dst_fmt)} "
-        "has no device path in the port yet; use backend='torch'")
-
-
-def _swap_rb(px: torch.Tensor) -> torch.Tensor:
-    """(..., 4k) bytes of 4-byte pixels with R and B exchanged."""
-    shape = px.shape
-    return px.reshape(-1, 4)[:, [2, 1, 0, 3]].reshape(shape)
-
-
 def _tiles_device(tex: Texture, pixel_format: int, mode_mask, flags,
                   device) -> torch.Tensor:
     """Decode, convert and zero invalid blocks on the device:
-    (n_blocks, 16 * pixel size) uint8 tensor."""
-    fn = _decoder(tex.format)
-    swap = _swap_on_device(F.texture_pixel_format(tex.format), pixel_format)
+    (n_blocks, 16, lanes) in convert_device's lane representation of
+    pixel_format.  Raises ConversionError where there is no conversion
+    path."""
+    src_fmt = F.texture_pixel_format(tex.format)
     blocks = tex.data.reshape(tex.n_blocks, tex.block_size)
-    pix, valid = fn(_words(blocks, _device(device)), mode_mask, flags)
-    px = pix.view(torch.uint8)
-    if swap:
-        px = _swap_rb(px)
-    return torch.where(valid[:, None], px, 0)
+    pix, valid = _decoder(tex.format)(_words(blocks, _device(device)),
+                                      mode_mask, flags)
+    n = pix.shape[0]
+    # The payload is the reference's pixel buffer: its bytes viewed as
+    # lanes are the decoded format's lane representation.
+    typed = pix.view(CD.repr_dtype(src_fmt)).reshape(
+        n * 16, CD.repr_lanes(src_fmt))
+    conv = CD.convert_pixels_device(typed, src_fmt, pixel_format)
+    return torch.where(valid[:, None, None], conv.reshape(n, 16, -1), 0)
+
+
+def _assemble(tiles: torch.Tensor, tex: Texture) -> torch.Tensor:
+    """(n_blocks, 16, lanes) per-block pixels -> (height, width, lanes)
+    row-major image on the same device, partial edge blocks cropped
+    (texture.c:115-143)."""
+    hb, wb = tex.height_in_blocks, tex.width_in_blocks
+    lanes = tiles.shape[2]
+    img = tiles.reshape(hb, wb, 4, 4, lanes).permute(0, 2, 1, 3, 4) \
+        .reshape(hb * 4, wb * 4, lanes)[:tex.height, :tex.width]
+    return img.contiguous()
+
+
+def decompress_texture_tiled_device(tex: Texture, pixel_format: int = None,
+                                    mode_mask=_FULL, flags=0,
+                                    device="cuda") -> torch.Tensor:
+    """Per-block tiles decoded, converted and zeroed on `device` and left
+    there (texture.c:77-98): (n_blocks, 16, lanes) in convert_device's lane
+    representation of pixel_format.  Their bytes equal the host path's."""
+    if not F.is_compressed(tex.format):
+        raise ValueError("device path requires a compressed texture")
+    if pixel_format is None:
+        pixel_format = F.texture_pixel_format(tex.format)
+    return _tiles_device(tex, pixel_format, mode_mask, flags, device)
+
+
+def decompress_texture_linear_device(tex: Texture, pixel_format: int = None,
+                                     mode_mask=_FULL, flags=0,
+                                     device="cuda") -> torch.Tensor:
+    """The whole texture as decompress_texture_tiled_device's pixels,
+    assembled row-major on `device`: (height, width, lanes)."""
+    return _assemble(decompress_texture_tiled_device(
+        tex, pixel_format, mode_mask, flags, device), tex)
 
 
 def _tiles_host(tex: Texture, pixel_format: int, mode_mask, flags,
@@ -182,16 +196,6 @@ def _tiles_host(tex: Texture, pixel_format: int, mode_mask, flags,
     return np.where(valid[:, None], converted, 0).astype(np.uint8)
 
 
-def _assemble(tiles: torch.Tensor, tex: Texture, ps: int) -> np.ndarray:
-    """(n_blocks, 16 * ps) per-block pixel bytes -> (height * width * ps,)
-    row-major bytes on the host, partial edge blocks cropped
-    (texture.c:115-143)."""
-    hb, wb = tex.height_in_blocks, tex.width_in_blocks
-    img = tiles.reshape(hb, wb, 4, 4, ps).permute(0, 2, 1, 3, 4) \
-        .reshape(hb * 4, wb * 4, ps)[:tex.height, :tex.width]
-    return img.contiguous().cpu().numpy().ravel()
-
-
 def decompress_texture_linear(tex: Texture, pixel_format: int = None,
                               mode_mask=_FULL, flags=0,
                               backend: str = "torch",
@@ -206,22 +210,21 @@ def decompress_texture_linear(tex: Texture, pixel_format: int = None,
     src_fmt = F.texture_pixel_format(tex.format)
     if pixel_format is None:
         pixel_format = src_fmt
-    ps = F.pixel_size(pixel_format)
     if not F.is_compressed(tex.format):
+        n_px = tex.width * tex.height
         if backend == "device":
-            swap = _swap_on_device(src_fmt, pixel_format)
-            px = torch.from_numpy(tex.data.copy()).to(_device(device))
-            out = (_swap_rb(px) if swap else px).cpu().numpy()
+            out = CD.convert_pixels_torch(tex.data, n_px, src_fmt,
+                                          pixel_format, _device(device))
         else:
-            out = C.convert_pixels(tex.data, tex.width * tex.height,
-                                   src_fmt, pixel_format)
+            out = C.convert_pixels(tex.data, n_px, src_fmt, pixel_format)
     elif backend == "device":
-        out = _assemble(_tiles_device(tex, pixel_format, mode_mask, flags,
-                                      device), tex, ps)
+        out = CD.to_bytes(decompress_texture_linear_device(
+            tex, pixel_format, mode_mask, flags, device))
     else:
         tiles = _tiles_host(tex, pixel_format, mode_mask, flags, backend,
                             device)
-        out = _assemble(torch.from_numpy(tiles), tex, ps)
+        out = CD.to_bytes(_assemble(
+            torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1), tex))
     LAST_BACKEND = backend
     return out
 
@@ -240,8 +243,8 @@ def decompress_texture_tiled(tex: Texture, pixel_format: int = None,
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
     if backend == "device":
-        out = _tiles_device(tex, pixel_format, mode_mask, flags, device) \
-            .cpu().numpy().ravel()
+        out = CD.to_bytes(decompress_texture_tiled_device(
+            tex, pixel_format, mode_mask, flags, device))
     else:
         out = _tiles_host(tex, pixel_format, mode_mask, flags, backend,
                           device).ravel()

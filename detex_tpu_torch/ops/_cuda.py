@@ -1,6 +1,6 @@
 """Launching the block-decode kernels of libdtx_cuda.so from PyTorch, and
-the dispatch shared by the wrappers of ops/bc.py, ops/rgtc.py, ops/etc.py
-and ops/eac.py (and ops/bptc.py's launch): a CPU
+the dispatch shared by the wrappers of ops/bc.py, ops/rgtc.py, ops/etc.py,
+ops/eac.py and ops/bptc_float.py (and ops/bptc.py's launch): a CPU
 tensor runs the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel or raises, any other device raises.  There is no
 fallback between the two.
@@ -56,9 +56,9 @@ def launch(name: str, entry: str, words: torch.Tensor, words_in: int,
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
-    """One format variant of a kernel of bc.cu or etc_eac.cu: its entry
-    point and the value that picks the kernel's instantiation, its word
-    counts per block, and its plain version."""
+    """One format variant of a kernel of bc.cu, etc_eac.cu or bc6h.cu: its
+    entry point and the value that picks the kernel's instantiation, its
+    word counts per block, and its plain version."""
 
     name: str
     entry: str

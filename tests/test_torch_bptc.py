@@ -309,6 +309,7 @@ def test_port_imports_no_jax():
             "detex_tpu_torch.mpc.runtime, detex_tpu_torch.engine, "
             "detex_tpu_torch.ops.bc, detex_tpu_torch.ops.rgtc, "
             "detex_tpu_torch.ops.etc, detex_tpu_torch.ops.eac, "
+            "detex_tpu_torch.ops.bptc_float, detex_tpu_torch.convert_device, "
             "detex_tpu_torch.cli.convert; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")

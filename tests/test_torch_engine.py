@@ -1,8 +1,10 @@
 """The port's texture engine and dtx-convert CLI (detex_tpu_torch.engine,
 detex_tpu_torch.cli.convert) against the JAX package's
-(detex_tpu.engine with backend="jax", detex_tpu.cli.convert --backend
-jax) and the golden textures, bit-exact, for the 8 BC/RGTC and the 8
-ETC/EAC variants, run on the CPU through the kernels' plain versions.
+(detex_tpu.engine with backend="jax" or "device", detex_tpu.cli.convert
+--backend jax) and the golden textures, bit-exact, for the 8 BC/RGTC, the 8
+ETC/EAC and the 2 BC6H variants, run on the CPU through the kernels' plain
+versions; the port's device backend converts on the device
+(detex_tpu_torch.convert_device).
 
 The `corpus_dir` fixture writes each family's 64x64 corpus texture from
 tests/golden/<FAMILY>.npz as test-texture-<FAMILY>.ktx with
@@ -35,7 +37,8 @@ _GOLDEN_DIR = _REPO / "tests" / "golden"
 _FULL = 0xFFFFFFFF
 _FAMILIES = ["BC1", "BC1A", "BC2", "BC3", "RGTC1", "SIGNED_RGTC1", "RGTC2",
              "SIGNED_RGTC2", "ETC1", "ETC2", "ETC2_PUNCHTHROUGH", "ETC2_EAC",
-             "EAC_R11", "EAC_SIGNED_R11", "EAC_RG11", "EAC_SIGNED_RG11"]
+             "EAC_R11", "EAC_SIGNED_R11", "EAC_RG11", "EAC_SIGNED_RG11",
+             "BPTC_FLOAT", "BPTC_SIGNED_FLOAT"]
 _UNSIGNED = [f for f in _FAMILIES if "SIGNED" not in f]
 # Families whose golden holds the decoded 64x64 corpus texture.
 _WITH_TEXTURE = [f for f in _FAMILIES
@@ -51,7 +54,8 @@ _INVALIDATING = {"BC1": (_FULL, 0), "BC1A": (_FULL, 0x2),
                  "ETC1": (0x1, 0), "ETC2": (0x1A, 0),
                  "ETC2_PUNCHTHROUGH": (_FULL, 0x4), "ETC2_EAC": (_FULL, 0x1),
                  "EAC_R11": (_FULL, 0), "EAC_SIGNED_R11": (_FULL, 0),
-                 "EAC_RG11": (_FULL, 0), "EAC_SIGNED_RG11": (_FULL, 0)}
+                 "EAC_RG11": (_FULL, 0), "EAC_SIGNED_RG11": (_FULL, 0),
+                 "BPTC_FLOAT": (_FULL, 0), "BPTC_SIGNED_FLOAT": (0x2AAA, 0)}
 _ALWAYS_VALID = ("BC1", "RGTC1", "RGTC2", "EAC_R11", "EAC_RG11")
 
 
@@ -66,8 +70,8 @@ def _fmt(family):
 def _corpus_texture(family, width=None, height=None):
     """The golden corpus texture, or a width x height crop built from the
     first of its blocks (partial edge blocks included).  A family whose
-    golden has no corpus (EAC_SIGNED_RG11) takes its random blocks, 64x64
-    by default."""
+    golden has no corpus (EAC_SIGNED_RG11, BPTC_SIGNED_FLOAT) takes its
+    random blocks, 64x64 by default."""
     g = _golden(family)
     blocks = g["corpus_blocks"] if "corpus_blocks" in g else \
         g["random_blocks"]
@@ -101,7 +105,7 @@ def jx():
 
 @pytest.fixture(scope="module")
 def corpus_dir(tmp_path_factory):
-    """test-texture-<FAMILY>.ktx for the 8 families, from the goldens."""
+    """test-texture-<FAMILY>.ktx for every family, from the goldens."""
     d = tmp_path_factory.mktemp("corpus")
     for family in _FAMILIES:
         tio.save_ktx([_corpus_texture(family)],
@@ -156,7 +160,8 @@ def test_decode_blocks_device_payload_widths(family):
     pix, valid = engine.decode_blocks_device(_fmt(family), words)
     ps = F.pixel_size(F.texture_pixel_format(_fmt(family)))
     kind = engine._DECODERS[F.compressed_index(_fmt(family))][2]
-    words_out = {"u32": 16, "p8": 4, "p8x2": 8, "p16": 8, "p16x2": 16}
+    words_out = {"u32": 16, "p8": 4, "p8x2": 8, "p16": 8, "p16x2": 16,
+                 "p16x4": 32}
     assert pix.dtype == torch.int32 and pix.shape == (256, 4 * ps)
     assert pix.shape[1] == words_out[kind]
     assert valid.dtype == torch.bool and valid.shape == (256,)
@@ -170,20 +175,18 @@ def test_decode_blocks_device_payload_widths(family):
 @pytest.mark.parametrize("family", _FAMILIES)
 def test_linear_cropped_vs_jax(jx, family, target, backend):
     """A 61x37 texture of corpus blocks (partial edge blocks cropped).
-    The device backend converts only within RGBA8/RGBX8/BGRA8/BGRX8 and
-    raises ConversionError elsewhere; the torch backend matches JAX's host
-    conversion, errors included."""
+    The torch backend matches JAX's host conversion, errors included; the
+    device backend, where it converts other than by the identity or an R/B
+    swap, matches JAX's device backend."""
     tex = _corpus_texture(family, 61, 37)
     pf = _TARGETS[target]
+    src = F.texture_pixel_format(tex.format)
+    jax_backend = "device" if backend == "device" and pf not in (
+        None, src) and src not in (F.RGBA8, F.RGBX8) else "jax"
     want = _outcome(lambda: jx.engine.decompress_texture_linear(
-        tex, pf, backend="jax"))
+        tex, pf, backend=jax_backend))
     got = _outcome(lambda: engine.decompress_texture_linear(
         tex, pf, backend=backend, device="cpu"))
-    src = F.texture_pixel_format(tex.format)
-    if backend == "device" and pf not in (None, src) and \
-            src not in (F.RGBA8, F.RGBX8):
-        assert got is C.ConversionError
-        return
     if isinstance(want, type):
         assert got is want
         return
@@ -197,17 +200,17 @@ def test_linear_cropped_vs_jax(jx, family, target, backend):
 @pytest.mark.parametrize("target", list(_TARGETS))
 @pytest.mark.parametrize("family", _FAMILIES)
 def test_tiled_vs_jax(jx, family, target, backend):
+    """As test_linear_cropped_vs_jax, for the tiled layout."""
     tex = _corpus_texture(family, 61, 37)
     pf = _TARGETS[target]
     src = F.texture_pixel_format(tex.format)
+    jax_backend = "device" if backend == "device" and pf not in (
+        None, src) and src not in (F.RGBA8, F.RGBX8) else "jax"
     want = _outcome(lambda: jx.engine.decompress_texture_tiled(
-        tex, pf, backend="jax"))
+        tex, pf, backend=jax_backend))
     got = _outcome(lambda: engine.decompress_texture_tiled(
         tex, pf, backend=backend, device="cpu"))
-    if backend == "device" and pf not in (None, src) and \
-            src not in (F.RGBA8, F.RGBX8):
-        assert got is C.ConversionError
-    elif isinstance(want, type):
+    if isinstance(want, type):
         assert got is want
     else:
         np.testing.assert_array_equal(got, want)
@@ -248,38 +251,96 @@ def test_golden_textures(family, backend):
                                            device="cpu")
     np.testing.assert_array_equal(got, g["texture_native"])
     assert engine.LAST_BACKEND == backend
-    if "texture_rgba8" in g and (backend == "torch" or F.texture_pixel_format(
-            tex.format) in (F.RGBA8, F.RGBX8)):
+    if "texture_rgba8" in g:
         got = engine.decompress_texture_linear(tex, F.RGBA8, backend=backend,
                                                device="cpu")
         np.testing.assert_array_equal(got, g["texture_rgba8"])
 
 
 def test_device_backend_raises_where_not_ported():
-    """No device conversion outside the packed 32-bit family, and no
-    kernel for BC6H yet: both raise, nothing falls back, and LAST_BACKEND
-    keeps the last call that succeeded."""
+    """The one refusal left: a pair with no conversion path raises
+    ConversionError on the device and torch backends alike, linear and
+    tiled; nothing falls back, and LAST_BACKEND keeps the last call that
+    succeeded.  BC6H, once refused, now decodes on both."""
     engine.decompress_texture_linear(_corpus_texture("BC1"), backend="torch",
                                      device="cpu")
     assert engine.LAST_BACKEND == "torch"
     rgtc1 = _corpus_texture("RGTC1")
-    with pytest.raises(C.ConversionError):
-        engine.decompress_texture_linear(rgtc1, F.RGBA8, backend="device",
-                                         device="cpu")
-    with pytest.raises(C.ConversionError):
-        engine.decompress_texture_tiled(rgtc1, F.RGBA8, backend="device",
-                                        device="cpu")
-    bc6h = Texture.new(F.BPTC_FLOAT, np.zeros(16 * 16, np.uint8), 16, 16)
+    assert C.match_conversion(F.R8, F.FLOAT_RGBA32) is None
     for backend in ("device", "torch"):
-        with pytest.raises(NotImplementedError, match="row 12"):
-            engine.decompress_texture_linear(bc6h, backend=backend,
-                                             device="cpu")
-    with pytest.raises(NotImplementedError, match="row 12"):
-        engine.decode_blocks(F.BPTC_FLOAT, np.zeros((4, 16), np.uint8),
-                             device="cpu")
+        for fn in (engine.decompress_texture_linear,
+                   engine.decompress_texture_tiled):
+            with pytest.raises(C.ConversionError):
+                fn(rgtc1, F.FLOAT_RGBA32, backend=backend, device="cpu")
+    with pytest.raises(C.ConversionError):
+        engine.decompress_texture_linear_device(rgtc1, F.FLOAT_RGBA32,
+                                                device="cpu")
+    uncompressed = Texture.new(F.R8, np.zeros(16, np.uint8), 4, 4)
+    with pytest.raises(C.ConversionError):
+        engine.decompress_texture_linear(uncompressed, F.FLOAT_RGBA32,
+                                         backend="device", device="cpu")
     assert engine.LAST_BACKEND == "torch"
+    bc6h = _corpus_texture("BPTC_FLOAT", 16, 16)
+    for backend in ("device", "torch"):
+        out = engine.decompress_texture_linear(bc6h, backend=backend,
+                                               device="cpu")
+        assert out.shape == (16 * 16 * 8,) and engine.LAST_BACKEND == backend
     with pytest.raises(ValueError):
         engine.decompress_texture_linear(rgtc1, backend="jax", device="cpu")
+
+
+_DEVICE_TENSOR_TARGETS = {
+    "BC3": (None, F.BGRA8, F.RGBA16), "RGTC1": (None, F.RGBA8, F.R16),
+    "SIGNED_RGTC2": (None, F.RG16, F.RG8),
+    "EAC_RG11": (None, F.RG8, F.SIGNED_RG16),
+    "BPTC_FLOAT": (None, F.RGBX16, F.BGRA8)}
+
+
+@pytest.mark.parametrize("family", list(_DEVICE_TENSOR_TARGETS))
+def test_device_tensors_vs_jax(jx, family):
+    """decompress_texture_linear_device / _tiled_device leave the image on
+    the device in the lane representation of the target format; their
+    bytes equal JAX's device pipeline's."""
+    from detex_tpu_torch import convert_device as CD
+    tex = _corpus_texture(family, 61, 37)
+    for pf in _DEVICE_TENSOR_TARGETS[family]:
+        want = jx.engine.decompress_texture_linear(tex, pf, backend="device")
+        img = engine.decompress_texture_linear_device(tex, pf, device="cpu")
+        fmt = pf or F.texture_pixel_format(tex.format)
+        assert isinstance(img, torch.Tensor)
+        assert img.shape == (37, 61, CD.repr_lanes(fmt))
+        assert img.dtype == CD.repr_dtype(fmt)
+        np.testing.assert_array_equal(CD.to_bytes(img), want)
+        tiles = engine.decompress_texture_tiled_device(tex, pf, device="cpu")
+        assert tiles.shape == (tex.n_blocks, 16, CD.repr_lanes(fmt))
+        np.testing.assert_array_equal(
+            CD.to_bytes(tiles),
+            jx.engine.decompress_texture_tiled(tex, pf, backend="device"))
+
+
+@pytest.mark.parametrize("params", [(2.2, 0.0, 4.0), (1.0, 0.25, 2.0)])
+def test_hdr_texture_vs_jax(jx, params):
+    """BPTC_FLOAT read as FLOAT_RGBX16_HDR to RGBX16 under non-default HDR
+    parameters: the device backend equals JAX's device backend, the torch
+    backend and JAX's host path."""
+    from detex_tpu import hdr
+    g = _golden("BPTC_FLOAT")
+    tex = Texture.new(F.BPTC_FLOAT | F.HDR, g["corpus_blocks"][:160], 61, 37)
+    hdr.set_hdr_parameters(*params)
+    try:
+        got = engine.decompress_texture_linear(tex, F.RGBX16,
+                                               backend="device", device="cpu")
+        for want in (
+                engine.decompress_texture_linear(tex, F.RGBX16,
+                                                 backend="torch",
+                                                 device="cpu"),
+                jx.engine.decompress_texture_linear(tex, F.RGBX16,
+                                                    backend="device"),
+                jx.engine.decompress_texture_linear(tex, F.RGBX16,
+                                                    backend="jax")):
+            np.testing.assert_array_equal(got, want)
+    finally:
+        hdr.set_hdr_parameters(1.0, 0.0, 1.0)
 
 
 def test_native_backend_texture(jx):
@@ -295,7 +356,8 @@ def test_uncompressed_texture(backend):
     rng = np.random.default_rng(3)
     tex = Texture.new(F.RGBA8, rng.integers(0, 256, 13 * 7 * 4, np.uint8),
                       13, 7)
-    for pf in (F.RGBA8, F.RGBX8, F.BGRA8, F.BGRX8):
+    for pf in (F.RGBA8, F.RGBX8, F.BGRA8, F.BGRX8, F.RGB8, F.RGBA16, F.R8,
+               F.FLOAT_RGBX16):
         got = engine.decompress_texture_linear(tex, pf, backend=backend,
                                                device="cpu")
         want = C.convert_pixels(tex.data, 13 * 7, F.RGBA8, pf)
@@ -329,8 +391,13 @@ def _cli_pair(jx, src, out_dir, ext, extra=()):
 
 @pytest.mark.parametrize("family", _FAMILIES)
 def test_cli_decompress_ktx_vs_jax(jx, corpus_dir, tmp_path, family):
+    """KTX has no signed half-float RGBX format: for BPTC_SIGNED_FLOAT both
+    CLIs raise the same error."""
     port, ref = _cli_pair(jx, corpus_dir / f"test-texture-{family}.ktx",
                           tmp_path, "ktx")
+    if family == "BPTC_SIGNED_FLOAT":
+        assert port is ref is tio.TextureFileError
+        return
     assert isinstance(port, bytes) and port == ref
     tex = tio.load_ktx(str(tmp_path / "port.ktx"))[0]
     assert tex.width == 64 and tex.height == 64
@@ -338,14 +405,35 @@ def test_cli_decompress_ktx_vs_jax(jx, corpus_dir, tmp_path, family):
 
 @pytest.mark.parametrize("family", _UNSIGNED)
 def test_cli_decompress_png_vs_jax(jx, corpus_dir, tmp_path, family):
-    """RG8 (RGTC2) and RG16 (EAC_RG11) have no PNG form: both CLIs raise
-    the same error."""
+    """RG8 (RGTC2), RG16 (EAC_RG11) and FLOAT_RGB16 (BPTC_FLOAT) have no
+    PNG form: both CLIs raise the same error."""
     port, ref = _cli_pair(jx, corpus_dir / f"test-texture-{family}.ktx",
                           tmp_path, "png")
-    if family in ("RGTC2", "EAC_RG11"):
+    if family in ("RGTC2", "EAC_RG11", "BPTC_FLOAT"):
         assert port is ref is tio.TextureFileError
     else:
         assert isinstance(port, bytes) and port == ref
+
+
+@pytest.mark.parametrize("family,ext", [("BPTC_FLOAT", "ktx"),
+                                        ("BPTC_SIGNED_FLOAT", "raw")])
+def test_cli_bc6h_backends_vs_jax(jx, corpus_dir, tmp_path, family, ext):
+    """dtx-convert -d on a BC6H .ktx (BPTC_FLOAT written as a FLOAT_RGB16
+    .ktx, the signed one, which no KTX format holds, as .raw): the default
+    device backend, --backend torch and JAX's CLI with --backend jax give
+    the same file."""
+    src = corpus_dir / f"test-texture-{family}.ktx"
+    port, ref = _cli_pair(jx, src, tmp_path, ext)
+    assert isinstance(port, bytes) and port == ref
+    out = tmp_path / f"torch.{ext}"
+    assert port_cli.main(["-q", "-d", "--backend", "torch", "--device",
+                          "cpu", str(src), str(out)]) == 0
+    assert out.read_bytes() == port
+    if ext == "ktx":
+        tex = tio.load_ktx(str(tmp_path / "port.ktx"))[0]
+        assert tex.format == F.FLOAT_RGB16 and tex.data.size == 64 * 64 * 6
+    else:
+        assert len(port) == 64 * 64 * 8
 
 
 def test_cli_explicit_format_and_device_backend(jx, corpus_dir, tmp_path):
@@ -392,7 +480,7 @@ def cuda():
 def test_cuda_engine_vs_cpu(cuda, family):
     tex = _random_texture(family, 253, 190, seed=7)
     mode_mask, flags = _INVALIDATING[family]
-    for pf in (None, F.BGRA8):
+    for pf in (None, F.BGRA8, F.RGBA16):
         for fn in (engine.decompress_texture_linear,
                    engine.decompress_texture_tiled):
             want = _outcome(lambda: fn(tex, pf, mode_mask, flags,
