@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel from detex_tpu_torch/csrc (one nvcc per source,
-all at once) and drives the port's two paths:
+all at once) and drives the port's three paths:
 
   * the control step: the BC7 kernel held bit-exact against its plain
     PyTorch version and the golden vectors, timed, then 5 requests served
@@ -24,10 +24,20 @@ all at once) and drives the port's two paths:
     16-bit, 8-bit and HDR targets, RGTC1 and ETC2_EAC to other formats)
     also byte-equal to the torch backend, which converts on the host; and
     every kernel timed against its plain version, and the BC6H kernel on
-    mode-mixed, mode-sorted and single-mode batches.
+    mode-mixed, mode-sorted and single-mode batches;
+  * the tools (detex_tpu_torch/tools/): the BC7 pre-gathered-partition,
+    lane-interleave and ALU mix-probe kernels held bit-exact against their
+    plain versions at the tools' 65,536 blocks (bc7_pre also against the
+    production BC7 kernel), timed beside their plain versions and (for the
+    interleave) the PyTorch call that computes the same function, then
+    each tool's main() run once.
 
-Each path's launch counts are set to 0 just before it and read just
-after.  Every phase raises on failure, so any failure exits non-zero.
+Every kernel's time is printed beside its bound: the larger of its bytes
+over HBM's rate and, for a kernel without a conditional branch, its
+integer instructions in the built library's SASS (cuobjdump -sass) over
+the SMs' issue rate.  Each path's
+launch counts are set to 0 just before it and read just after.  Every
+phase raises on failure, so any failure exits non-zero.
 Last lines: the kernels JSON, the card's name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -41,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,18 +62,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from detex_tpu import convert as C
-from detex_tpu import formats as F
-from detex_tpu import hdr
-from detex_tpu import io as tio
-from detex_tpu.texture import Texture
-from detex_tpu_torch import _build, engine
+from detex_tpu_torch import _build, engine, hdr
+from detex_tpu_torch import convert as C
 from detex_tpu_torch import convert_device as CD
+from detex_tpu_torch import formats as F
+from detex_tpu_torch import io as tio
 from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import runtime as R
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
+from detex_tpu_torch.texture import Texture
+from detex_tpu_torch.tools import interleave_probe as IP
+from detex_tpu_torch.tools import mxu_probe as MP
+from detex_tpu_torch.tools import profile_sections as PS
 
 _REPO = Path(__file__).resolve().parent
 _GOLDEN_DIR = _REPO / "tests" / "golden"
@@ -114,16 +127,16 @@ _VARIANTS = {
 # kernel -> (its source, the TPU kernel it replaces)
 _BC_CU = "detex_tpu_torch/csrc/bc.cu"
 _ETC_CU = "detex_tpu_torch/csrc/etc_eac.cu"
-_ETC_PALLAS = "detex_tpu/ops/pallas/etc_eac_pallas.py"
 _REPLACES = {
     "bc1_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:228"),
     "bc23_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:247"),
     "rgtc1_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:279"),
     "rgtc2_decode": (_BC_CU, "detex_tpu/ops/pallas/bc_pallas.py:305"),
-    "etc_decode": (_ETC_CU, f"{_ETC_PALLAS}:490, :509, :518"),
-    "etc2_eac_decode": (_ETC_CU, f"{_ETC_PALLAS}:533"),
-    "eac_r11_decode": (_ETC_CU, f"{_ETC_PALLAS}:546"),
-    "eac_rg11_decode": (_ETC_CU, f"{_ETC_PALLAS}:559"),
+    "etc_decode": (_ETC_CU, "detex_tpu/ops/pallas/etc_eac_pallas.py:490, "
+                   ":509, :518"),
+    "etc2_eac_decode": (_ETC_CU, "detex_tpu/ops/pallas/etc_eac_pallas.py:533"),
+    "eac_r11_decode": (_ETC_CU, "detex_tpu/ops/pallas/etc_eac_pallas.py:546"),
+    "eac_rg11_decode": (_ETC_CU, "detex_tpu/ops/pallas/etc_eac_pallas.py:559"),
     "bc6h_decode": ("detex_tpu_torch/csrc/bc6h.cu",
                     "detex_tpu/ops/pallas/bptc_float_pallas.py:128"),
 }
@@ -147,6 +160,35 @@ def _device() -> str:
     return smi
 
 
+# Every kernel of libdtx_cuda.so, by name.
+_KERNEL_NAMES = ("bc7_kernel", "bc7_pre_kernel", "bc1_kernel", "bc23_kernel",
+                 "rgtc1_kernel", "rgtc2_kernel", "etc_kernel",
+                 "etc2_eac_kernel", "eac_r11_kernel", "eac_rg11_kernel",
+                 "bc6h_kernel", "planar_add1_kernel",
+                 "rows_interleave_kernel", "mix_probe_kernel")
+
+
+def _kernel_id(mangled: str):
+    """(kernel name, template argument or None) of a mangled kernel name
+    (an int for bool, int and enum arguments, the family for
+    mix_probe_kernel), or None for no kernel of ours."""
+    for name in _KERNEL_NAMES:
+        i = mangled.find(f"{len(name)}{name}")
+        if i < 0:
+            continue
+        rest = mangled[i + len(str(len(name))) + len(name):]
+        m = re.match(r"IL(?:b|i|j|N\w*?E)(\d+)E", rest)
+        if m:
+            return name, int(m.group(1))
+        m = re.match(r"IN3dtx\d+MixSched(\w+?)EE", rest)
+        return name, (m.group(1) if m else None)
+    return None
+
+
+def _label(kid) -> str:
+    return kid[0] + ("" if kid[1] is None else f"<{kid[1]}>")
+
+
 def _build_kernels() -> float:
     t0 = time.perf_counter()
     path = _build.build()
@@ -155,17 +197,96 @@ def _build_kernels() -> float:
     print(f"build: {path.relative_to(_REPO)} in {seconds:.2f} s")
     kernel = "?"
     for line in (path.parent / "nvcc.log").read_text().splitlines():
-        m = re.search(r"Function properties for .*?((?:bc7|bc1|bc23|rgtc1|"
-                      r"rgtc2|etc|etc2_eac|eac_r11|eac_rg11|bc6h)_kernel)"
-                      r"(?:IL([bi])(\d+)E)?", line)
-        if m:
-            flag = "" if not m.group(2) else \
-                f"<{m.group(3)}>" if m.group(2) == "i" else \
-                f"<{'true' if m.group(3) == '1' else 'false'}>"
-            kernel = m.group(1) + flag
+        m = re.search(r"Function properties for (_Z\w+)", line)
+        if line.startswith("nvcc wall"):
+            print(f"  {line}")
+        elif m:
+            kid = _kernel_id(m.group(1))
+            kernel = "?" if kid is None else _label(kid)
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.strip()}")
     return seconds
+
+
+# Integer ALU opcodes of sm_90a SASS (moves, memory, control, uniform-path
+# and float instructions are not counted).
+_INT_OPS = frozenset(
+    "IADD3 IADD IADD32I IMAD IMAD32I IMADSP IMUL IMUL32I IMNMX VIMNMX "
+    "VIMNMX3 VIADD VIADDMNMX IABS ISETP ICMP ISCADD LEA LOP3 LOP LOP32I SHF "
+    "SHL SHR SEL PRMT FLO POPC BREV BMSK SGXT IDP I2I I2IP PLOP3".split())
+# The H100 SXM at its 1.98 GHz boost clock: HBM3 at 3.35 TB/s (NVIDIA's
+# data sheet); 132 SMs, each issuing at most one warp instruction per clock
+# from each of its 4 schedulers: 128 lanes a clock, 33.4 T
+# thread-instructions per second.  (Its 64 INT32 lanes, 16.7 Tops/s, are no
+# floor: IMAD issues to the FMA pipe, and the BC7 kernel runs faster than
+# its integer instructions over 16.7 Tops/s would allow.)
+_HBM_BYTES_PER_S = 3.35e12
+_ISSUE_PER_S = 132 * 128 * 1.98e9
+
+
+# Kernels whose static SASS count, over every branch path, is what their
+# divergent warps issue on this run's random modes (BC7 and BC6H blocks
+# draw their modes at random, so a warp holds many).  That count is what
+# this design issues, not what the function needs: a block decodes one
+# mode, and a kernel that kept warps on one mode would issue far fewer.
+# It is printed as the time this design's instructions take, never used
+# as a bound; until an executed per-block count exists these kernels are
+# bound by their bytes.
+_EVERY_PATH = (("bc7_kernel", None), ("bc7_pre_kernel", None),
+               ("bc6h_kernel", 0), ("bc6h_kernel", 1))
+
+
+def _sass_census() -> dict:
+    """Integer ALU instructions in each kernel's SASS (cuobjdump -sass of
+    the built library): {(kernel, template argument): (all, IMAD,
+    conditional branches)}.  A thread decodes one block with every loop
+    unrolled, so where a warp takes every path the count is the
+    instructions a thread issues."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", str(_build.build())], check=True,
+                          capture_output=True, text=True).stdout
+    counts, kid = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            kid = _kernel_id(line.split("Function : ")[1].strip())
+            if kid is not None:
+                counts[kid] = [0, 0, 0]
+        elif kid is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9]*)", line)
+            if m and m.group(2) in _INT_OPS:
+                counts[kid][0] += 1
+                counts[kid][1] += m.group(2) == "IMAD"
+            elif m and m.group(1) and m.group(2) == "BRA":
+                counts[kid][2] += 1
+    if {k for k, _ in counts} != set(_KERNEL_NAMES):
+        raise AssertionError(f"kernels missing from the SASS: "
+                             f"{set(_KERNEL_NAMES) - {k for k, _ in counts}}")
+    print("sass: integer instructions per thread (of them IMAD; "
+          "conditional branches): " + ", ".join(
+              f"{_label(k)} {n} ({m}; {b})"
+              for k, (n, m, b) in sorted(counts.items(), key=str)))
+    print(f"sass: issued by this design at N={_N_BIG} (static count over "
+          f"every branch path / issue rate; not a bound): " + ", ".join(
+              f"{_label(k)} {_N_BIG * counts[k][0] / _ISSUE_PER_S * 1e3:.5f}"
+              f" ms" for k in _EVERY_PATH))
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def _bound(nbytes: float, threads: int, kid, sass: dict):
+    """(least time in ms, "bytes" or "operations") of a launch of kernel
+    `kid` moving `nbytes` with `threads` threads: the larger of the bytes
+    over HBM's rate and, for a kernel without a conditional branch (whose
+    SASS count is what each thread executes), its integer instructions
+    over the issue rate.  A branchy kernel's static count covers paths a
+    block does not take, so its bound is its bytes alone."""
+    n_int, _, n_branch = sass[kid]
+    t_bytes = nbytes / _HBM_BYTES_PER_S
+    t_ops = 0.0
+    if n_branch == 0:
+        t_ops = threads * n_int / _ISSUE_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _words(blocks_u8: np.ndarray) -> torch.Tensor:
@@ -583,7 +704,7 @@ def _texture_calls(variant: str, blocks: np.ndarray):
 
 @contextlib.contextmanager
 def _hdr_parameters(params):
-    """detex_tpu.hdr's parameters set to `params` (gamma, range min, range
+    """The port's hdr parameters set to `params` (gamma, range min, range
     max) inside the block, and back to the defaults after it."""
     if params is None:
         yield
@@ -597,10 +718,11 @@ def _hdr_parameters(params):
 
 def _host_converted(tex: Texture, pf: int, params) -> np.ndarray:
     """The torch backend's bytes for a texture call: decode on the card,
-    convert on the host with detex_tpu.convert.  At gamma != 1 the host
-    converter calls glibc powf once per lane (minutes for 67M lanes), so
-    there the converter runs once on each of the 65,536 half-float values
-    and the texture's lanes are looked up in its result: the same bytes,
+    convert on the host with the port's copy of the host converter.  At
+    gamma != 1 the host converter calls glibc powf once per lane (minutes
+    for 67M lanes), so there the converter runs once on each of the 65,536
+    half-float values and the texture's lanes are looked up in its result:
+    the same bytes,
     since the conversion maps each 16-bit lane on its own."""
     with _hdr_parameters(params):
         if params is None or params[0] == 1.0:
@@ -759,23 +881,12 @@ def _device_us(blocks: dict) -> dict:
     """Device time per launch of each variant's kernel at N = 1,048,576,
     from torch.profiler's CUDA activity over 10 launches (None where the
     profiler records no kernel)."""
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for variant, b in blocks.items():
         words, fn = _words(b), _wrapper(variant)
-        fn(words)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn(words)
-            torch.cuda.synchronize()
         kernel = _VARIANTS[variant][0].replace("_decode", "_kernel")
-        us = [getattr(e, "device_time_total", None)
-              or getattr(e, "cuda_time_total", 0)
-              for e in prof.key_averages() if kernel + "<" in e.key
-              or kernel + "(" in e.key]
-        out[variant] = sum(us) / 10 if us and sum(us) else None
+        out[variant] = _profile_us(lambda: fn(words), kernel + "<",
+                                   kernel + "(")
         out_words = fn(words[:1])[0].shape[1]
         moved = _N_BIG * (4 * words.shape[1] + 4 * out_words + 1)
         print(f"device: {variant} N={_N_BIG}: " + (
@@ -783,6 +894,26 @@ def _device_us(blocks: dict) -> dict:
             else f"{out[variant]:.2f} us per launch, "
                  f"{moved / out[variant] / 1e6:.3f} TB/s moved"))
     return out
+
+
+def _profile_us(fn, *keys: str, calls: int = 10):
+    """Device time per call of fn() in the CUDA kernels whose name contains
+    one of `keys`, from torch.profiler's CUDA activity over `calls` calls
+    (None where the profiler records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "device_time_total", None)
+          or getattr(e, "cuda_time_total", 0)
+          for e in prof.key_averages()
+          if any(k in e.key for k in keys)
+          and str(e.device_type).endswith("CUDA")]
+    return sum(us) / calls if us and sum(us) else None
 
 
 def _texture_breakdown(blocks: dict, smi: str) -> None:
@@ -880,7 +1011,27 @@ def _phase(name: str, fn, *args):
     return out
 
 
-def _texture_phase(rng, smi: str):
+# Template argument of each texture variant's kernel instantiation.
+_TEMPLATE_ARG = {"bc1": 0, "bc1a": 1, "bc2": 0, "bc3": 1, "rgtc1": 0,
+                 "signed_rgtc1": 1, "rgtc2": 0, "signed_rgtc2": 1, "etc1": 0,
+                 "etc2": 1, "etc2_punchthrough": 2, "etc2_eac": None,
+                 "eac_r11": 0, "eac_signed_r11": 1, "eac_rg11": 0,
+                 "eac_signed_rg11": 1, "bptc_float": 0,
+                 "bptc_signed_float": 1}
+
+
+def _variant_bound(variant: str, n: int, sass: dict):
+    """Bound of a texture variant's kernel on n blocks: its bytes (block,
+    pixels, 1 B valid) and its SASS integer instructions per block."""
+    kernel = _VARIANTS[variant][0].replace("_decode", "_kernel")
+    words_out = _wrapper(variant)(torch.zeros(
+        (1, _VARIANTS[variant][4] // 4), dtype=torch.int32,
+        device="cuda"))[0].shape[1]
+    nbytes = n * (_VARIANTS[variant][4] + 4 * words_out + 1)
+    return _bound(nbytes, n, (kernel, _TEMPLATE_ARG[variant]), sass)
+
+
+def _texture_phase(rng, smi: str, sass: dict):
     """Goldens, kernel vs plain at N = 1,048,576, the texture path, the
     CLI and the timings.  Returns the kernels' JSON entries."""
     errs = _phase("texture goldens", _bc_golden_phase)
@@ -895,6 +1046,7 @@ def _texture_phase(rng, smi: str):
     times = _phase("texture timing", _bc_timing, blocks)
     _phase("bc6h mode batches", _bc6h_mode_timing, blocks["bptc_float"], smi)
     device_us = _phase("texture device time", _device_us, blocks)
+    bounds = {v: _variant_bound(v, _N_BIG, sass) for v in _VARIANTS}
     entries = []
     for kernel, (source, replaces) in _REPLACES.items():
         variants = [v for v in _VARIANTS if _VARIANTS[v][0] == kernel]
@@ -906,13 +1058,214 @@ def _texture_phase(rng, smi: str):
             "max_abs_err": max(errs[v] for v in variants),
             "ms": times[(first, _N_BIG)][0],
             "plain_ms": times[(first, _N_BIG)][1],
+            "bound_ms": bounds[first][0], "bound_by": bounds[first][1],
+            "library_ms": None,
             "variants": {v: {
                 "launches": launches[v], "max_abs_err": errs[v],
                 "ms": times[(v, _N_BIG)][0],
                 "plain_ms": times[(v, _N_BIG)][1],
+                "bound_ms": bounds[v][0], "bound_by": bounds[v][1],
                 "device_us": device_us[v],
                 "ms_n4096": times[(v, 4096)][0],
                 "plain_ms_n4096": times[(v, 4096)][1]} for v in variants}})
+    return entries
+
+
+# --- the tools: the BC7 pre-gathered probe, lane interleave, ALU mix ------
+
+_TOOL_N = MP.N              # the tools' block count, 65,536
+_TOOLS_SOURCE = "detex_tpu_torch/csrc/"
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _tool_kernels_vs_plain() -> dict:
+    """Each tool kernel against its plain version at the tool's size (and
+    bc7_pre against the production BC7 kernel); raises on any difference.
+    Returns the inputs, for the timings."""
+    words = _words(MP.tool_blocks(_TOOL_N))
+    pre = MP.pregather(words)
+    if not torch.equal(pre.cpu(), MP.pregather(words.cpu())):
+        raise AssertionError("pregather on the card != on the CPU")
+    err = {}
+    for mm, fl in ((_FULL, 0), (_FULL, 2), (_FULL, 4), (0x0F, 0)):
+        p_k, v_k = MP.decode_bc7_pre(words, pre, mm, fl)
+        p_p, v_p = MP.decode_bc7_pre_plain(words, pre, mm, fl)
+        p_b, v_b = bptc.decode_bptc(words, mm, fl)
+        e = max(_max_err(p_k, p_p), _max_err(p_k, p_b))
+        if e or not (torch.equal(v_k, v_p) and torch.equal(v_k, v_b)):
+            raise AssertionError(f"bc7_pre differs (mask {mm:#x}, flags "
+                                 f"{fl})")
+        err["bc7_pre_decode"] = max(err.get("bc7_pre_decode", 0), e)
+    x = torch.from_numpy(IP.tool_input(_TOOL_N)).cuda()
+    for name, fn, plain in (
+            ("interleave_planar", IP.planar_add1, IP.planar_add1_plain),
+            ("interleave_rows", IP.rows_interleave,
+             IP.rows_interleave_plain)):
+        err[name] = _max_err(fn(x), plain(x))
+        if err[name]:
+            raise AssertionError(f"{name} kernel != plain version")
+    if not np.array_equal(IP.rows_interleave(x).cpu().numpy(),
+                          IP.numpy_rows(x.cpu().numpy())):
+        raise AssertionError("rows_interleave != numpy")
+    mix_x = torch.from_numpy(np.random.default_rng(7).integers(
+        -2**31, 2**31, (_TOOL_N, 4), np.int64).astype(np.int32)).cuda()
+    err["mix_probe"] = 0
+    for family in PS.FAMILIES:
+        e = _max_err(PS.mix_probe(mix_x, family),
+                     PS.mix_probe_plain(mix_x, family))
+        if e:
+            raise AssertionError(f"mix_probe {family} != plain version")
+    torch.cuda.synchronize()
+    print(f"bits: bc7_pre_kernel bit-exact (tolerance 0) vs its plain "
+          f"version and the production BC7 kernel on the tool's {_TOOL_N} "
+          f"blocks x 4 mask/flags settings; planar_add1 and rows_interleave "
+          f"vs plain and numpy on (16, 8, {_TOOL_N // 8}); mix_probe vs "
+          f"plain for the {len(PS.FAMILIES)} families on {_TOOL_N} blocks")
+    return {"err": err, "words": words, "pre": pre, "x": x, "mix_x": mix_x}
+
+
+def _tool_timing(inp: dict, sass: dict, smi: str) -> dict:
+    """Kernel, plain version and (interleave) library call per tool
+    kernel at the tool's size, CUDA events, alternating (kernel, plain,
+    plain, kernel); with each kernel's bound.  {name: entry fields}."""
+    words, pre, x, mix_x = inp["words"], inp["pre"], inp["x"], inp["mix_x"]
+    n, lanes = _TOOL_N, _TOOL_N // 8
+
+    def pair(k_fn, p_fn, reps=21, inner=20):
+        k1 = _time_ms(k_fn)
+        p1 = _time_ms(p_fn, reps=reps, inner=inner)
+        p2 = _time_ms(p_fn, reps=reps, inner=inner)
+        k2 = _time_ms(k_fn)
+        return min(k1, k2), min(p1, p2)
+
+    out = {}
+    ms, plain = pair(lambda: MP.decode_bc7_pre(words, pre),
+                     lambda: MP.decode_bc7_pre_plain(words, pre), 7, 3)
+    out["bc7_pre_decode"] = (ms, plain, None, _bound(
+        n * (16 + 8 + 64 + 1), n, ("bc7_pre_kernel", None), sass))
+    for name, fn, p_fn, lib, kernel in (
+            ("interleave_planar", IP.planar_add1, IP.planar_add1_plain,
+             IP.library_planar, "planar_add1_kernel"),
+            ("interleave_rows", IP.rows_interleave, IP.rows_interleave_plain,
+             IP.library_rows, "rows_interleave_kernel")):
+        ms, plain = pair(lambda: fn(x), lambda: p_fn(x))
+        lib_ms = _time_ms(lambda: lib(x))
+        out[name] = (ms, plain, lib_ms, _bound(
+            2 * 128 * lanes * 4, 32 * lanes, (kernel, None), sass))
+    for family in PS.FAMILIES:
+        ms, plain = pair(lambda: PS.mix_probe(mix_x, family),
+                         lambda: PS.mix_probe_plain(mix_x, family), 3, 1)
+        out[("mix_probe", family)] = (ms, plain, None, _bound(
+            n * (16 + 4), n, ("mix_probe_kernel", family), sass))
+    for key, (ms, plain, lib_ms, (bound, by)) in out.items():
+        name = key if isinstance(key, str) else f"mix_probe {key[1]}"
+        print(f"time: {name} N={n}: kernel {ms:.5f} ms, plain {plain:.5f} "
+              f"ms" + ("" if lib_ms is None else f", library {lib_ms:.5f} ms")
+              + f"; bound {bound:.5f} ms ({by}) on {smi}")
+    return out
+
+
+def _tool_device_us(smi: str) -> dict:
+    """Device time per launch at N = 1,048,576 blocks of the production BC7
+    kernel and bc7_pre_kernel on the tool's blocks, of the two interleave
+    kernels and their library yardsticks, and of mix_probe_kernel per
+    family, with each one's TB/s or Tops/s."""
+    n = _N_BIG
+    words = _words(MP.tool_blocks(n))
+    pre = MP.pregather(words)
+    x = torch.from_numpy(IP.tool_input(n)).cuda()
+    mix_x = torch.from_numpy(np.random.default_rng(7).integers(
+        -2**31, 2**31, (n, 4), np.int64).astype(np.int32)).cuda()
+    out = {
+        "bc7_decode": _profile_us(lambda: bptc.decode_bptc(words),
+                                  "bc7_kernel("),
+        "bc7_pre_decode": _profile_us(lambda: MP.decode_bc7_pre(words, pre),
+                                      "bc7_pre_kernel("),
+        "interleave_planar": _profile_us(lambda: IP.planar_add1(x),
+                                         "planar_add1_kernel("),
+        "interleave_rows": _profile_us(lambda: IP.rows_interleave(x),
+                                       "rows_interleave_kernel("),
+        # Every CUDA kernel the library calls launch.
+        "library_planar": _profile_us(lambda: IP.library_planar(x), ""),
+        "library_rows": _profile_us(lambda: IP.library_rows(x), ""),
+    }
+    for family in PS.FAMILIES:
+        out[f"mix_probe {family}"] = _profile_us(
+            lambda: PS.mix_probe(mix_x, family), f"MixSched{family}>(")
+    for name, us in out.items():
+        if us is None:
+            print(f"device: {name} N={n}: not measured (no kernel in the "
+                  "profile)")
+            continue
+        if name.startswith("mix_probe"):
+            steps = len(PS._schedule(name.split()[1]))
+            rate = f"{n * steps / us / 1e6:.3f} Tops/s of the TPU census"
+        else:
+            moved = n * (16 + 64 + 1 + (8 if name == "bc7_pre_decode" else 0)) \
+                if name.startswith("bc7") else 2 * x.numel() * 4
+            rate = f"{moved / us / 1e6:.3f} TB/s moved"
+        print(f"device: {name} N={n}: {us:.2f} us per launch, {rate} on "
+              f"{smi}")
+    return out
+
+
+def _tool_paths() -> dict:
+    """Each tool's main() once on the card, its launch counts set to 0 just
+    before and read just after; each must launch its kernels."""
+    for counts in (MP.KERNEL_LAUNCHES, IP.KERNEL_LAUNCHES,
+                   PS.KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    _phase("tool mxu_probe", MP.main, [])
+    _phase("tool interleave_probe", IP.main, [])
+    _phase("tool profile_sections", PS.main, list(PS.FAMILIES))
+    launches = {**MP.KERNEL_LAUNCHES, **IP.KERNEL_LAUNCHES,
+                **PS.KERNEL_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a tool kernel was not launched: {launches}")
+    print(f"main path (tools): launches {launches}")
+    return launches
+
+
+def _tools_phase(smi: str, sass: dict) -> list:
+    """The tool kernels vs plain, their timings, then the three tools'
+    paths.  Returns the kernels' JSON entries."""
+    inp = _phase("tools kernel vs plain", _tool_kernels_vs_plain)
+    times = _phase("tools timing", _tool_timing, inp, sass, smi)
+    device_us = _phase("tools device time", _tool_device_us, smi)
+    launches = _tool_paths()
+    err = inp["err"]
+    entries = []
+    for name, source, replaces in (
+            ("bc7_pre_decode", "bc7_pre.cu", "tools/mxu_probe.py:107"),
+            ("interleave_planar", "interleave.cu",
+             "tools/interleave_probe.py:58"),
+            ("interleave_rows", "interleave.cu",
+             "tools/interleave_probe.py:79, :86")):
+        ms, plain, lib_ms, (bound, by) = times[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": _TOOLS_SOURCE + source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err[name], "ms": ms,
+                        "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": by, "library_ms": lib_ms,
+                        "device_us_n1048576": device_us[name]})
+    fam = {f: times[("mix_probe", f)] for f in PS.FAMILIES}
+    entries.append({
+        "name": "mix_probe", "route": "cuda",
+        "source": _TOOLS_SOURCE + "mix_probe.cu",
+        "replaces": "tools/profile_sections.py:186",
+        "launches": launches["mix_probe"], "max_abs_err": err["mix_probe"],
+        "ms": fam["BC7"][0], "plain_ms": fam["BC7"][1],
+        "bound_ms": fam["BC7"][3][0], "bound_by": fam["BC7"][3][1],
+        "library_ms": None,
+        "families": {f: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[3][0],
+                         "bound_by": t[3][1],
+                         "device_us_n1048576": device_us[f"mix_probe {f}"]}
+                     for f, t in fam.items()}})
     return entries
 
 
@@ -920,19 +1273,24 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = _device()
     _phase("build", _build_kernels)
+    sass = _phase("sass", _sass_census)
     rng = np.random.default_rng(_SEED)
     timing = _phase("bc7 kernel", _kernel_phase, rng)
     launches = _phase("control step", _main_path, rng, smi)
-    texture_kernels = _texture_phase(rng, smi)
+    texture_kernels = _texture_phase(rng, smi, sass)
+    tool_kernels = _tools_phase(smi, sass)
     print(f"phase all: {time.perf_counter() - t0:.2f} s")
+    bound, by = _bound(256 * (16 + 64 + 1), 256, ("bc7_kernel", None), sass)
     print(json.dumps({"kernels": [{
         "name": "bc7_decode", "route": "cuda",
         "source": "detex_tpu_torch/csrc/bc7.cu",
         "replaces": "detex_tpu/ops/pallas/bptc_pallas.py:240",
         "launches": launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
         "ms_n65536": timing["ms_65536"],
-        "plain_ms_n65536": timing["plain_ms_65536"]}, *texture_kernels]}))
+        "plain_ms_n65536": timing["plain_ms_65536"]},
+        *texture_kernels, *tool_kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,14 @@ toolkit can build it; nothing here is imported by the CPU path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -60,22 +62,30 @@ def build() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
-    objs, procs = [], []
+    objs, cmds = [], []
     for unit in UNITS:
         obj = out.with_name(f"{unit}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / unit)]
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                     str(CSRC / unit)])
         objs.append(obj)
-        procs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
     tmp = out.with_name(f"{LIB_NAME}.{tag}")
     link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    start = time.perf_counter()
+
+    def compile_unit(cmd):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - start
+
+    # One nvcc per unit, all started together.
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        results = list(pool.map(compile_unit, cmds))
     log, failed = [], []
-    for cmd, proc in procs:
-        text, _ = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + text)
+    for unit, cmd, (proc, seconds) in zip(UNITS, cmds, results):
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        log.append(f"nvcc wall {unit}: {seconds:.1f} s\n")
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n{text}")
+            failed.append(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
     if not failed:
         proc = subprocess.run(link, capture_output=True, text=True)
         log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
@@ -111,4 +121,19 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # bc7_pre.cu: (words, pre, n, mode_mask, flags, pixels, valid, stream).
+    lib.dtx_bc7_pre_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+        ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    # interleave.cu: (x, lanes, out, stream).
+    for name in ("dtx_planar_add1", "dtx_rows_interleave"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    # mix_probe.cu: (x, n, family, out, stream).
+    lib.dtx_mix_probe.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+    for name in ("dtx_bc7_pre_decode", "dtx_planar_add1",
+                 "dtx_rows_interleave", "dtx_mix_probe"):
+        getattr(lib, name).restype = ctypes.c_int
     return lib

@@ -23,10 +23,10 @@ import sys
 
 import torch
 
-from detex_tpu import formats as F
-from detex_tpu import io as tio
-from detex_tpu.io import registry
-from detex_tpu.texture import Texture
+from detex_tpu_torch import formats as F
+from detex_tpu_torch import io as tio
+from detex_tpu_torch.io import registry
+from detex_tpu_torch.texture import Texture
 from detex_tpu_torch import engine
 
 _FILE_TYPES = {"ktx": "ktx", "dds": "dds", "raw": "raw", "png": "png"}

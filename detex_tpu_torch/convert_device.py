@@ -1,12 +1,13 @@
 """Pixel-format conversion on the tensor's device, in plain PyTorch.
 
 Counterpart of detex_tpu/convert_device.py: every edge of the host
-conversion graph (detex_tpu.convert.TABLE; reference convert.c:765-864)
-has a device function here, held bit-exact to the host oracle
-(detex_tpu.convert, detex_tpu.hdr) by tests/test_torch_convert_device.py.
+conversion graph (convert.TABLE of the port's copy of the host converter;
+reference convert.c:765-864) has a device function here, held bit-exact
+to the host oracle (the port's convert and hdr) by
+tests/test_torch_convert_device.py.
 The path through the graph comes from the host's match_conversion, so the
 device runs the same steps in the same order, and the HDR parameters are
-read from detex_tpu.hdr at call time.
+read from the port's hdr at call time.
 
 Pixel representation: a (n_pixels, lanes) tensor per format, uint8 lanes
 for 8-bit formats, int16 lanes for 16-bit integer and half-float formats
@@ -41,9 +42,10 @@ import functools
 import numpy as np
 import torch
 
-from detex_tpu import formats as F
-from detex_tpu import hdr as hdr_mod
-from detex_tpu.convert import TABLE, ConversionError, match_conversion
+from detex_tpu_torch import formats as F
+from detex_tpu_torch import resolve_device
+from detex_tpu_torch import hdr as hdr_mod
+from detex_tpu_torch.convert import TABLE, ConversionError, match_conversion
 
 _U32 = 0xFFFFFFFF
 _DTYPES = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
@@ -63,8 +65,10 @@ def repr_lanes(fmt: int) -> int:
 
 
 def from_bytes(buf: np.ndarray, n_pixels: int, fmt: int,
-               device="cpu") -> torch.Tensor:
-    """Flat u8 host buffer -> (n_pixels, lanes) tensor on `device`."""
+               device="cuda") -> torch.Tensor:
+    """Flat u8 host buffer -> (n_pixels, lanes) tensor on `device` (the
+    card unless device="cpu")."""
+    device = resolve_device(device)
     arr = np.ascontiguousarray(buf, dtype=np.uint8).view(
         _NP_DTYPES[F.component_size(fmt)]).reshape(n_pixels,
                                                    repr_lanes(fmt))
@@ -515,8 +519,9 @@ def convert_pixels_device(arr: torch.Tensor, src_fmt: int,
 
 
 def convert_pixels_torch(src: np.ndarray, n_pixels: int, src_fmt: int,
-                         dst_fmt: int, device="cpu") -> np.ndarray:
-    """convert.convert_pixels with the conversion run on `device`: flat u8
-    host buffer in, flat u8 host buffer out."""
+                         dst_fmt: int, device="cuda") -> np.ndarray:
+    """convert.convert_pixels with the conversion run on `device` (the
+    card unless device="cpu"): flat u8 host buffer in, flat u8 host buffer
+    out."""
     arr = from_bytes(src, n_pixels, src_fmt, device)
     return to_bytes(convert_pixels_device(arr, src_fmt, dst_fmt))

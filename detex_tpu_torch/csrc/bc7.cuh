@@ -140,11 +140,46 @@ DTX_HD uint32_t interp(uint32_t e0, uint32_t e1, uint32_t w) {
   return ((64u - w) * e0 + w * e1 + 32u) >> 6;
 }
 
+// Where a block's partition comes from: the subset word (2 bits per pixel)
+// and the second and third anchor positions, for `ns` subsets and
+// partition id `psid`.
+struct Partition {
+  uint32_t subsets, a2, a3;
+};
+
+// The production kernel's source: the tables above.
+struct TablePartition {
+  DTX_HD Partition operator()(uint32_t ns, uint32_t psid) const {
+    uint32_t subsets = 0;
+    if (ns == 2) subsets = DTX_LOOKUP(kSubset2, psid);
+    if (ns == 3) subsets = DTX_LOOKUP(kSubset3, psid);
+    const uint32_t anchors = DTX_LOOKUP(kAnchors, psid);
+    return {subsets, ns == 2 ? (anchors & 0xFu) : ((anchors >> 4) & 0xFu),
+            (anchors >> 8) & 0xFu};
+  }
+};
+
+// Two words gathered per block ahead of the kernel
+// (tools/mxu_probe.py:84-99): `sub32`, the subset word used as it is for
+// every subset count, and `pos`, the anchors packed a0 | a1 << 4 | a2 << 8
+// (the second of two subsets in bits 0-3, the second and third of three in
+// bits 4-7 and 8-11), as tools/mxu_probe.py:_bc7_kernel_pre reads them.
+struct PreGatheredPartition {
+  uint32_t sub32, pos;
+  DTX_HD Partition operator()(uint32_t ns, uint32_t) const {
+    return {sub32, ns == 2 ? (pos & 0xFu) : ((pos >> 4) & 0xFu),
+            (pos >> 8) & 0xFu};
+  }
+};
+
 // Decodes one block into 16 packed RGBA8 pixels (R in the low byte, pixel
 // i = 4y + x) and returns whether the block is valid under mode_mask and
-// flags (0x2 rejects modes >= 4, 0x4 rejects modes < 4).
+// flags (0x2 rejects modes >= 4, 0x4 rejects modes < 4).  `partition`
+// gives the subset word and anchors (TablePartition for BC7 itself).
+template <class PartitionSource>
 DTX_HD bool bc7_decode_block(uint64_t lo, uint64_t hi, uint32_t mode_mask,
-                             uint32_t flags, uint32_t out[16]) {
+                             uint32_t flags, uint32_t out[16],
+                             const PartitionSource& partition) {
   const uint32_t byte0 = (uint32_t)lo & 0xFFu;
   const uint32_t m = byte0 ? lowest_set_bit(byte0) : 0u;
 
@@ -196,12 +231,8 @@ DTX_UNROLL
     }
   }
 
-  uint32_t subsets = 0;
-  if (ns == 2) subsets = DTX_LOOKUP(kSubset2, psid);
-  if (ns == 3) subsets = DTX_LOOKUP(kSubset3, psid);
-  const uint32_t anchors = DTX_LOOKUP(kAnchors, psid);
-  const uint32_t a2 = ns == 2 ? (anchors & 0xFu) : ((anchors >> 4) & 0xFu);
-  const uint32_t a3 = (anchors >> 8) & 0xFu;
+  const Partition part = partition(ns, psid);
+  const uint32_t subsets = part.subsets, a2 = part.a2, a3 = part.a3;
 
   // Stream choice (decompress-bptc.c:381-385, 422-451): with a second
   // stream, the index-selection bit gives colour the second stream.
@@ -250,6 +281,11 @@ DTX_UNROLL
   if ((flags & 0x2u) && m >= 4) valid = false;
   if ((flags & 0x4u) && m < 4) valid = false;
   return valid;
+}
+
+DTX_HD bool bc7_decode_block(uint64_t lo, uint64_t hi, uint32_t mode_mask,
+                             uint32_t flags, uint32_t out[16]) {
+  return bc7_decode_block(lo, hi, mode_mask, flags, out, TablePartition{});
 }
 
 }  // namespace dtx

@@ -22,8 +22,8 @@ Backends of the texture calls:
   "device": decode, convert, zero and assemble on `device`, then copy the
       image to the host;
   "torch":  decode on `device`, convert with the host converter
-      detex_tpu.convert.convert_pixels;
-  "native": the multithreaded C++ host runtime, detex_tpu.native.
+      convert.convert_pixels;
+  "native": the multithreaded C++ host runtime, native (the port's copy).
 The device is explicit: a CUDA device runs the CUDA kernels, the CPU runs
 their plain PyTorch versions, and nothing falls back from one to the other.
 A format pair with no conversion path raises ConversionError on every
@@ -35,9 +35,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from detex_tpu import convert as C
-from detex_tpu import formats as F
-from detex_tpu.texture import Texture
+from detex_tpu_torch import convert as C
+from detex_tpu_torch import resolve_device as _device
+from detex_tpu_torch import formats as F
+from detex_tpu_torch.texture import Texture
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
@@ -90,15 +91,6 @@ def _decoder(tex_fmt: int):
     return getattr(module, name)
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was asked for, but "
-                           "torch.cuda.is_available() is false (pass "
-                           "device='cpu' to run the plain versions)")
-    return device
-
-
 def _words(blocks_u8: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(words_from_bytes(blocks_u8)).to(device)
 
@@ -117,9 +109,9 @@ def decode_blocks(tex_fmt: int, blocks_u8: np.ndarray, mode_mask=_FULL,
     blocks are not zeroed here: callers zero them in the target format.
 
     backend "torch" and "device" decode on `device`; "native" runs
-    detex_tpu.native (which zero-fills invalid blocks itself)."""
+    the native runtime (which zero-fills invalid blocks itself)."""
     if backend == "native":
-        from detex_tpu import native
+        from detex_tpu_torch import native
         return native.decode(F.BY_FORMAT[tex_fmt].name, blocks_u8,
                              int(mode_mask), int(flags))
     if backend not in BACKENDS:

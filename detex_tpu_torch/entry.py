@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from detex_tpu_torch import resolve_device
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import mppi as M
 from detex_tpu_torch.mpc.runtime import ControllerConfig, control_step
@@ -25,9 +26,10 @@ def _small_cfg() -> ControllerConfig:
     return ControllerConfig(dynamics=dcfg, mppi=mcfg)
 
 
-def entry(device="cpu"):
-    """Control step at _small_cfg() on `device`."""
-    device = torch.device(device)
+def entry(device="cuda"):
+    """Control step at _small_cfg() on `device` (the card unless
+    device="cpu"; raises where CUDA is asked for and absent)."""
+    device = resolve_device(device)
     cfg = _small_cfg()
     dcfg = cfg.dynamics
     generator = torch.Generator(device=device)

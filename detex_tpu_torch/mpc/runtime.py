@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from detex_tpu_torch import resolve_device
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import mppi as mppi_mod
 from detex_tpu_torch.ops import bptc
@@ -87,13 +88,14 @@ def control_step(params, nominal, generator, obs_words, goal_z,
 
 
 class Controller:
-    """Serves control_step one observation at a time on `device`, keeping
-    the nominal plan and a seeded generator between steps."""
+    """Serves control_step one observation at a time on `device` (the card
+    unless device="cpu"), keeping the nominal plan and a seeded generator
+    between steps."""
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         _check_supported(cfg)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = params
         self.goal_z = goal_z.to(self.device)
         self.cfg = cfg

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from detex_tpu import formats as F
+from detex_tpu_torch import formats as F
 from detex_tpu_torch.ops import _cuda
 from detex_tpu_torch.ops.bitops import field, has_flag, pack_rgba8, u32
 from detex_tpu_torch.ops.rgtc import unsigned_channel

@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from detex_tpu import formats as F
+from detex_tpu_torch import formats as F
 from detex_tpu_torch.ops import _cuda
 from detex_tpu_torch.ops.bitops import (dyn_field, dyn_field_vw, has_flag,
                                         mask_bit, pack_rgba8)
@@ -49,7 +49,7 @@ _IB = [3, 3, 2, 2, 2, 2, 4, 2]          # primary index bits
 _IB2 = [0, 0, 0, 0, 3, 2, 0, 0]         # secondary index bits
 _HAS_PBITS = [1, 1, 0, 1, 0, 0, 1, 1]
 
-_TABLES_NPZ = (Path(__file__).resolve().parents[2] / "detex_tpu" / "data"
+_TABLES_NPZ = (Path(__file__).resolve().parents[1] / "data"
                / "bptc_tables.npz")
 
 
@@ -158,9 +158,13 @@ def _weights(idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
 
 
 def decode_bptc_plain(words: torch.Tensor, mode_mask: int = _FULL,
-                      flags: int = 0):
+                      flags: int = 0, pre: torch.Tensor | None = None):
     """Plain PyTorch BC7 decode on any device; same contract as
-    decode_bptc."""
+    decode_bptc.  `pre`, (N, 2) int32 [sub32, pos] per block, replaces the
+    partition tables as bc7.cuh's PreGatheredPartition does: sub32 is the
+    subset word (2 bits per pixel) for every subset count, pos the anchors
+    (bits 0-3 the second of two subsets, 4-7 and 8-11 the second and third
+    of three)."""
     n = words.shape[0]
     t = _tables(words.device)
     mode_raw = _extract_mode(words)
@@ -193,11 +197,18 @@ def decode_bptc_plain(words: torch.Tensor, mode_mask: int = _FULL,
     # --- subsets and index streams ----------------------------------------
     # Each anchor pixel stores one bit less, so the offset of pixel i in a
     # stream is width*i minus the anchors before i.
-    subset = t["subset"][ns.long() - 1, psid.long()]           # (N, 16)
-    anchors = t["anchors"][psid.long()]                        # (N, 3)
-    a2 = torch.where(ns == 2, anchors[:, 0], anchors[:, 1])[:, None]
-    a3 = anchors[:, 2][:, None]
     i16 = torch.arange(16, dtype=torch.int32, device=words.device)[None, :]
+    if pre is None:
+        subset = t["subset"][ns.long() - 1, psid.long()]       # (N, 16)
+        anchors = t["anchors"][psid.long()]                    # (N, 3)
+        a2 = torch.where(ns == 2, anchors[:, 0], anchors[:, 1])[:, None]
+        a3 = anchors[:, 2][:, None]
+    else:
+        sub32 = pre[:, :1].long() & _FULL
+        subset = ((sub32 >> (2 * i16)) & 3).int()
+        pos = pre[:, 1]
+        a2 = torch.where(ns == 2, pos & 0xF, (pos >> 4) & 0xF)[:, None]
+        a3 = ((pos >> 8) & 0xF)[:, None]
     has2 = (ns >= 2)[:, None]
     has3 = (ns == 3)[:, None]
     is_anchor = (i16 == 0) | (has2 & (i16 == a2)) | (has3 & (i16 == a3))

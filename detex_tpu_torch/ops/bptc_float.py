@@ -177,7 +177,7 @@ _FIELDS = [
 
 _KEYS = [f"{c}{i}" for c in "rgb" for i in range(4)]
 
-_TABLES_NPZ = (Path(__file__).resolve().parents[2] / "detex_tpu" / "data"
+_TABLES_NPZ = (Path(__file__).resolve().parents[1] / "data"
                / "bptc_tables.npz")
 
 

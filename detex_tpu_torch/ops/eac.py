@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from detex_tpu import formats as F
+from detex_tpu_torch import formats as F
 from detex_tpu_torch.ops import _cuda
 from detex_tpu_torch.ops.bitops import field, has_flag, pack_u16x2, u32
 

@@ -42,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from detex_tpu import formats as F
+from detex_tpu_torch import formats as F
 from detex_tpu_torch.ops import _cuda
 from detex_tpu_torch.ops.bitops import field, has_flag, mask_bit, pack_rgba8
 from detex_tpu_torch.ops.eac import SRC_I, bswap32, decode_eac_alpha

@@ -11,7 +11,9 @@ JAX package only inside the `jx` fixture; run the card's tests there with
         tests/test_torch_bptc.py tests/test_torch_control_step.py
 """
 
+import ast
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -300,17 +302,85 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
                                      device=cuda).T)
 
 
-# --- the package imports no jax -------------------------------------------
+# --- the package imports no jax and nothing of detex_tpu ----------------------
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import detex_tpu_torch, detex_tpu_torch.entry, "
-            "detex_tpu_torch._build, detex_tpu_torch.ops.bptc, "
-            "detex_tpu_torch.mpc.runtime, detex_tpu_torch.engine, "
-            "detex_tpu_torch.ops.bc, detex_tpu_torch.ops.rgtc, "
-            "detex_tpu_torch.ops.etc, detex_tpu_torch.ops.eac, "
-            "detex_tpu_torch.ops.bptc_float, detex_tpu_torch.convert_device, "
-            "detex_tpu_torch.cli.convert; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
-    subprocess.run([sys.executable, "-c", code], check=True, cwd=_REPO)
+    """Every module of the port (tools included) and chip_smoke import
+    neither jax nor any module of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import detex_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    detex_tpu_torch.__path__, 'detex_tpu_torch.')]\n"
+        "assert {'detex_tpu_torch.engine', 'detex_tpu_torch.tools.mxu_probe',\n"
+        "        'detex_tpu_torch.tools.interleave_probe',\n"
+        "        'detex_tpu_torch.tools.profile_sections'} <= set(names)\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'detex_tpu'\n"
+        "             or m.startswith('detex_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], check=True, cwd=_REPO,
+                         capture_output=True, text=True).stdout
+    assert int(out) >= 30
+
+
+# A citation of the counterpart, `detex_tpu/<path>.py:<line>`, is allowed in
+# code; any other mention of the JAX package's directory is a path into it.
+_CITATION = re.compile(r"detex_tpu/[\w/]+\.py:\d+")
+_JAX_PACKAGE = re.compile(r"(?<![\w/])detex_tpu(?![\w])")
+
+
+def _docstring_nodes(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            yield node.body[0].value
+
+
+def _python_faults(path):
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(n) for n in _docstring_nodes(tree)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            if _JAX_PACKAGE.search(_CITATION.sub("", node.value)):
+                yield f"{path.name}:{node.lineno}: {node.value!r}"
+            continue
+        else:
+            continue
+        for name in names:
+            if name == "detex_tpu" or name.startswith("detex_tpu."):
+                yield f"{path.name}:{node.lineno}: imports {name}"
+
+
+def _cpp_faults(path):
+    for n, line in enumerate(path.read_text().splitlines(), 1):
+        code = line.split("//")[0]
+        if _JAX_PACKAGE.search(code):
+            yield f"{path.name}:{n}: {line.strip()}"
+
+
+def test_port_sources_name_no_jax_package():
+    """No file of the port, and not chip_smoke.py, imports detex_tpu or
+    names a path into detex_tpu/ (outside comments, docstrings and
+    file:line citations)."""
+    root = _REPO / "detex_tpu_torch"
+    files = [p for p in root.rglob("*") if p.is_file()
+             and "build" not in p.relative_to(root).parts
+             and p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
+    assert len(files) >= 40
+    faults = []
+    for path in files + [_REPO / "chip_smoke.py"]:
+        faults += list(_python_faults(path) if path.suffix == ".py"
+                       else _cpp_faults(path))
+    assert not faults, faults

@@ -162,8 +162,20 @@ def test_controller_rejects_ilqr():
                         torch.zeros((64, 4), dtype=torch.int32), goal, cfg)
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """entry() and Controller() run on the card unless asked for the CPU,
+    and raise where there is none rather than carry on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.entry()
+    cfg = tentry._small_cfg()
+    params = TD.init_params(cfg.dynamics, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TR.Controller(params, torch.zeros(cfg.dynamics.latent_dim), cfg)
+
+
 def test_entry_runs():
-    fn, args = tentry.entry()
+    fn, args = tentry.entry("cpu")
     action, shifted, diag = fn(*args)
     cfg = tentry._small_cfg()
     assert tuple(action.shape) == (cfg.mppi.action_dim,)

@@ -2,6 +2,8 @@
 convert_device), run here on the CPU, against the host oracle
 (detex_tpu.convert and detex_tpu.hdr, golden-tested against the compiled
 reference) and the JAX package's detex_tpu.convert_device, byte for byte.
+The port reads the HDR parameters from its own copy of hdr, so the tests
+set (and restore) those of both packages.
 
 Denormals: XLA flushes f32 denormals, so JAX's device conversion is held
 to the host oracle only outside the pixels whose HDR f32 chain passes
@@ -29,7 +31,9 @@ import torch
 import detex_tpu.convert as C
 import detex_tpu.formats as F
 import detex_tpu.hdr as H
+from detex_tpu_torch import convert as PC
 from detex_tpu_torch import convert_device as CD
+from detex_tpu_torch import hdr as PH
 
 _GOLDEN = Path(__file__).resolve().parent / "golden" / "convert.npz"
 _N = 2048
@@ -80,10 +84,14 @@ def _jax_edge(jx, i, buf, n):
 
 @pytest.fixture
 def hdr_params():
-    """Sets detex_tpu.hdr's parameters; the defaults come back after the
-    test, failing or not."""
-    yield H.set_hdr_parameters
-    H.set_hdr_parameters(1.0, 0.0, 1.0)
+    """Sets the HDR parameters of detex_tpu.hdr (the host oracle's) and of
+    the port's hdr (convert_device's); the defaults come back in both after
+    the test, failing or not."""
+    def set_both(*params):
+        H.set_hdr_parameters(*params)
+        PH.set_hdr_parameters(*params)
+    yield set_both
+    set_both(1.0, 0.0, 1.0)
 
 
 @pytest.mark.parametrize("edge_i", range(len(C.TABLE)),
@@ -158,16 +166,17 @@ def test_gamma_table_cached_per_parameters(hdr_params):
     and device, not per edge or per call."""
     hdr_params(2.2, 0.0, 4.0)
     buf = np.random.default_rng(5).integers(0, 256, 64 * 8, np.uint8)
-    CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16)
+    CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16, "cpu")
     builds = CD._gamma_u16_lut_host.cache_info().misses
     uploads = CD._gamma_u16_lut.cache_info().misses
-    out = CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16)
+    out = CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16,
+                                  "cpu")
     assert CD._gamma_u16_lut_host.cache_info().misses == builds
     assert CD._gamma_u16_lut.cache_info().misses == uploads
     np.testing.assert_array_equal(
         out, C.convert_pixels(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16))
     hdr_params(1.8, 0.0, 4.0)
-    CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16)
+    CD.convert_pixels_torch(buf, 64, F.FLOAT_RGBX16_HDR, F.RGBX16, "cpu")
     assert CD._gamma_u16_lut_host.cache_info().misses == builds + 1
 
 
@@ -179,7 +188,7 @@ def test_every_half_value(dst):
     natively)."""
     buf = np.arange(65536, dtype=np.uint16).view(np.uint8)
     np.testing.assert_array_equal(
-        CD.convert_pixels_torch(buf, 65536, F.FLOAT_R16, dst),
+        CD.convert_pixels_torch(buf, 65536, F.FLOAT_R16, dst, "cpu"),
         C.convert_pixels(buf, 65536, F.FLOAT_R16, dst))
 
 
@@ -194,7 +203,7 @@ def test_multi_step_path_parity(jx):
         buf = _random_buf(rng, src, _N)
         host = C.convert_pixels(buf, _N, src, dst)
         np.testing.assert_array_equal(
-            CD.convert_pixels_torch(buf, _N, src, dst), host)
+            CD.convert_pixels_torch(buf, _N, src, dst, "cpu"), host)
         np.testing.assert_array_equal(
             jcd.convert_pixels_jax(buf, _N, src, dst), host)
 
@@ -241,9 +250,9 @@ def test_all_edges_supported_any_gamma(hdr_params):
         for src, dst, _ in C.TABLE:
             assert C.match_conversion(src, dst) is not None
     assert C.match_conversion(F.A8, F.FLOAT_RGBA32) is None
-    with pytest.raises(C.ConversionError):
+    with pytest.raises(PC.ConversionError):
         CD.convert_pixels_torch(np.zeros(4, np.uint8), 4, F.A8,
-                                F.FLOAT_RGBA32)
+                                F.FLOAT_RGBA32, "cpu")
 
 
 def test_representation():
@@ -254,12 +263,23 @@ def test_representation():
                        (F.FLOAT_RGBX16, torch.int16),
                        (F.FLOAT_RGB32, torch.int32)):
         buf = rng.integers(0, 256, 5 * F.pixel_size(fmt), np.uint8)
-        t = CD.from_bytes(buf, 5, fmt)
+        t = CD.from_bytes(buf, 5, fmt, "cpu")
         assert t.dtype == dtype == CD.repr_dtype(fmt)
         assert t.shape == (5, CD.repr_lanes(fmt))
         np.testing.assert_array_equal(CD.to_bytes(t), buf)
         np.testing.assert_array_equal(
-            CD.convert_pixels_torch(buf, 5, fmt, fmt), buf)
+            CD.convert_pixels_torch(buf, 5, fmt, fmt, "cpu"), buf)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """from_bytes and convert_pixels_torch run on the card unless asked for
+    the CPU, and raise where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    buf = np.zeros(4 * 4, np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CD.from_bytes(buf, 4, F.RGBA8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CD.convert_pixels_torch(buf, 4, F.RGBA8, F.BGRA8)
 
 
 @pytest.mark.parametrize("pair", range(_N_PAIRS))
@@ -269,7 +289,7 @@ def test_golden_pairs(pair):
     g = np.load(_GOLDEN)
     src, dst = int(g[f"pair{pair}_src_fmt"]), int(g[f"pair{pair}_dst_fmt"])
     out = CD.convert_pixels_torch(g[f"pair{pair}_src"], int(g["n_pixels"]),
-                                  src, dst)
+                                  src, dst, "cpu")
     np.testing.assert_array_equal(
         out, g[f"pair{pair}_out"],
         err_msg=f"{F.format_name(src)}->{F.format_name(dst)}")
@@ -285,10 +305,10 @@ def test_golden_hdr(hdr_params, case):
     n = int(g["n_pixels"])
     np.testing.assert_array_equal(
         CD.convert_pixels_torch(g[f"hdr{case}_src"], n, F.FLOAT_RGBX16_HDR,
-                                F.RGBX16), g[f"hdr{case}_out"])
+                                F.RGBX16, "cpu"), g[f"hdr{case}_out"])
     np.testing.assert_array_equal(
         CD.convert_pixels_torch(g[f"hdr{case}_src32"], n,
-                                F.FLOAT_RGBX32_HDR, F.FLOAT_RGBX32),
+                                F.FLOAT_RGBX32_HDR, F.FLOAT_RGBX32, "cpu"),
         g[f"hdr{case}_out32"])
 
 

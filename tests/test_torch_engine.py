@@ -7,9 +7,12 @@ versions; the port's device backend converts on the device
 (detex_tpu_torch.convert_device).
 
 The `corpus_dir` fixture writes each family's 64x64 corpus texture from
-tests/golden/<FAMILY>.npz as test-texture-<FAMILY>.ktx with
-detex_tpu.io.save_ktx (EAC_SIGNED_RG11, whose golden has no corpus, gets a
-random one), so these tests need nothing outside the repo.
+tests/golden/<FAMILY>.npz as test-texture-<FAMILY>.ktx with the port's
+io.save_ktx (EAC_SIGNED_RG11, whose golden has no corpus, gets a random
+one), so these tests need nothing outside the repo.  Textures are the
+port's own Texture; the JAX engine reads them field by field.  Where both
+packages raise, the port raises its own copy of the JAX package's
+exception class (`_assert_same_error`).
 
 Tests marked `cuda` run the engine on a card and skip here; the card's
 machine has no JAX, so this module imports the JAX package only inside
@@ -25,11 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from detex_tpu import convert as C
-from detex_tpu import formats as F
-from detex_tpu import io as tio
-from detex_tpu.texture import Texture
+from detex_tpu import convert as JC
+from detex_tpu_torch import convert as C
 from detex_tpu_torch import engine
+from detex_tpu_torch import formats as F
+from detex_tpu_torch import io as tio
+from detex_tpu_torch.texture import Texture
 from detex_tpu_torch.cli import convert as port_cli
 
 _REPO = Path(__file__).resolve().parent.parent
@@ -121,6 +125,16 @@ def _outcome(fn):
         return type(e)
 
 
+def _assert_same_error(port, ref):
+    """Both calls raised, the port the class that stands for the JAX
+    package's: the same builtin, or the port's copy of a detex_tpu class
+    (same name, in the module of the same name under detex_tpu_torch)."""
+    assert isinstance(port, type) and isinstance(ref, type), (port, ref)
+    assert port.__name__ == ref.__name__, (port, ref)
+    assert port.__module__ == ref.__module__.replace(
+        "detex_tpu", "detex_tpu_torch", 1) or port is ref, (port, ref)
+
+
 # --- decode_blocks ------------------------------------------------------------
 
 
@@ -188,7 +202,7 @@ def test_linear_cropped_vs_jax(jx, family, target, backend):
     got = _outcome(lambda: engine.decompress_texture_linear(
         tex, pf, backend=backend, device="cpu"))
     if isinstance(want, type):
-        assert got is want
+        _assert_same_error(got, want)
         return
     assert got.dtype == np.uint8
     ps = F.pixel_size(pf or src)
@@ -211,7 +225,7 @@ def test_tiled_vs_jax(jx, family, target, backend):
     got = _outcome(lambda: engine.decompress_texture_tiled(
         tex, pf, backend=backend, device="cpu"))
     if isinstance(want, type):
-        assert got is want
+        _assert_same_error(got, want)
     else:
         np.testing.assert_array_equal(got, want)
 
@@ -323,10 +337,13 @@ def test_hdr_texture_vs_jax(jx, params):
     """BPTC_FLOAT read as FLOAT_RGBX16_HDR to RGBX16 under non-default HDR
     parameters: the device backend equals JAX's device backend, the torch
     backend and JAX's host path."""
-    from detex_tpu import hdr
+    from detex_tpu import hdr as jhdr
+    from detex_tpu_torch import hdr
     g = _golden("BPTC_FLOAT")
     tex = Texture.new(F.BPTC_FLOAT | F.HDR, g["corpus_blocks"][:160], 61, 37)
+    # The port reads its own hdr, JAX its own: set both, restore both.
     hdr.set_hdr_parameters(*params)
+    jhdr.set_hdr_parameters(*params)
     try:
         got = engine.decompress_texture_linear(tex, F.RGBX16,
                                                backend="device", device="cpu")
@@ -341,6 +358,7 @@ def test_hdr_texture_vs_jax(jx, params):
             np.testing.assert_array_equal(got, want)
     finally:
         hdr.set_hdr_parameters(1.0, 0.0, 1.0)
+        jhdr.set_hdr_parameters(1.0, 0.0, 1.0)
 
 
 def test_native_backend_texture(jx):
@@ -360,7 +378,7 @@ def test_uncompressed_texture(backend):
                F.FLOAT_RGBX16):
         got = engine.decompress_texture_linear(tex, pf, backend=backend,
                                                device="cpu")
-        want = C.convert_pixels(tex.data, 13 * 7, F.RGBA8, pf)
+        want = JC.convert_pixels(tex.data, 13 * 7, F.RGBA8, pf)
         np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):
         engine.decompress_texture_tiled(tex, backend=backend, device="cpu")
@@ -396,7 +414,8 @@ def test_cli_decompress_ktx_vs_jax(jx, corpus_dir, tmp_path, family):
     port, ref = _cli_pair(jx, corpus_dir / f"test-texture-{family}.ktx",
                           tmp_path, "ktx")
     if family == "BPTC_SIGNED_FLOAT":
-        assert port is ref is tio.TextureFileError
+        _assert_same_error(port, ref)
+        assert port is tio.TextureFileError
         return
     assert isinstance(port, bytes) and port == ref
     tex = tio.load_ktx(str(tmp_path / "port.ktx"))[0]
@@ -410,7 +429,8 @@ def test_cli_decompress_png_vs_jax(jx, corpus_dir, tmp_path, family):
     port, ref = _cli_pair(jx, corpus_dir / f"test-texture-{family}.ktx",
                           tmp_path, "png")
     if family in ("RGTC2", "EAC_RG11", "BPTC_FLOAT"):
-        assert port is ref is tio.TextureFileError
+        _assert_same_error(port, ref)
+        assert port is tio.TextureFileError
     else:
         assert isinstance(port, bytes) and port == ref
 
@@ -488,7 +508,7 @@ def test_cuda_engine_vs_cpu(cuda, family):
             got = _outcome(lambda: fn(tex, pf, mode_mask, flags,
                                       backend="device", device=cuda))
             if isinstance(want, type):
-                assert got is want
+                _assert_same_error(got, want)
             else:
                 np.testing.assert_array_equal(got, want)
 
