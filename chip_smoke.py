@@ -18,19 +18,24 @@ all at once) and drives the port's three paths:
     under 5 mode masks), then one 4096x4096 texture per format (a 4K mip,
     1,048,576 blocks) through engine.decompress_texture_linear(
     backend="device"), which decodes, converts the pixels and assembles on
-    the card, and a BC3, an ETC2_EAC, an EAC_RG11 and a BPTC_FLOAT .ktx
-    through the dtx-convert CLI, each byte-equal to the same call with the
-    plain versions swapped in; the calls that convert (BC6H to half float,
-    16-bit, 8-bit and HDR targets, RGTC1 and ETC2_EAC to other formats)
-    also byte-equal to the torch backend, which converts on the host; and
-    every kernel timed against its plain version, and the BC6H kernel on
-    mode-mixed, mode-sorted and single-mode batches;
+    the card, BPTC (BC7) among them, and a BC3, an ETC2_EAC, an EAC_RG11
+    and a BPTC_FLOAT .ktx through the dtx-convert CLI, each byte-equal to
+    the same call with the plain versions swapped in; the calls that
+    convert (BC6H to half float, 16-bit, 8-bit and HDR targets, RGTC1 and
+    ETC2_EAC to other formats) also byte-equal to the torch backend, which
+    converts on the host; every kernel timed against its plain version,
+    and stage breakdowns of the texture calls;
   * the tools (detex_tpu_torch/tools/): the BC7 pre-gathered-partition,
     lane-interleave and ALU mix-probe kernels held bit-exact against their
     plain versions at the tools' 65,536 blocks (bc7_pre also against the
     production BC7 kernel), timed beside their plain versions and (for the
     interleave) the PyTorch call that computes the same function, then
-    each tool's main() run once.
+    each tool's main() run once;
+  * "mode batches", last, so that it cannot move the device times read
+    before it: the BC7 and BC6H kernels' device time on blocks of mixed
+    modes, the same blocks sorted by mode and one-mode batches, and the
+    profiler's reading of each kernel on the mixed batch before and after
+    those rounds.
 
 Every kernel's time is printed beside its bound: the larger of its bytes
 over HBM's rate and, for a kernel without a conditional branch, its
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -225,15 +231,16 @@ _ISSUE_PER_S = 132 * 128 * 1.98e9
 
 
 # Kernels whose static SASS count, over every branch path, is what their
-# divergent warps issue on this run's random modes (BC7 and BC6H blocks
-# draw their modes at random, so a warp holds many).  That count is what
-# this design issues, not what the function needs: a block decodes one
-# mode, and a kernel that kept warps on one mode would issue far fewer.
+# divergent warps issue on this run's random modes (BC6H blocks draw their
+# mode codes at random, so a warp holds many).  That count is what this
+# design issues, not what the function needs: a block decodes one mode.
 # It is printed as the time this design's instructions take, never used
 # as a bound; until an executed per-block count exists these kernels are
-# bound by their bytes.
-_EVERY_PATH = (("bc7_kernel", None), ("bc7_pre_kernel", None),
-               ("bc6h_kernel", 0), ("bc6h_kernel", 1))
+# bound by their bytes.  BC7 and bc7_pre are not listed: their tile
+# decodes blocks ordered by mode, so a warp issues about one mode's case
+# of the 8 the static count covers, and the "mode batches" phase measures
+# them instead.
+_EVERY_PATH = (("bc6h_kernel", 0), ("bc6h_kernel", 1))
 
 
 def _sass_census() -> dict:
@@ -896,110 +903,257 @@ def _device_us(blocks: dict) -> dict:
     return out
 
 
-def _profile_us(fn, *keys: str, calls: int = 10):
-    """Device time per call of fn() in the CUDA kernels whose name contains
-    one of `keys`, from torch.profiler's CUDA activity over `calls` calls
-    (None where the profiler records none)."""
+def _profile(fn, keys, calls: int) -> dict:
+    """{kernel: [device us of each launch record]} of the CUDA kernels
+    whose name contains one of `keys`, from torch.profiler's CUDA activity
+    over `calls` calls of fn(); the window is run up to 3 times until it
+    records one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    out = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if any(k in e.name for k in keys) \
+                    and str(e.device_type).endswith("CUDA"):
+                out.setdefault(e.name, []).append(e.device_time_total)
+        if out:
+            break
+    return out
+
+
+def _profile_us(fn, *keys: str, calls: int = 10):
+    """Device time per call of fn() in the CUDA kernels whose name contains
+    one of `keys` (None where the profiler records none).  The profiler
+    may drop some of a window's launch records and misread a few (the
+    "mode batches" phase prints what it kept), so a kernel's time per call
+    is the median of its records times its launches per call, records /
+    calls rounded."""
+    us = sum(statistics.median(d) * max(1, round(len(d) / calls))
+             for d in _profile(fn, keys, calls).values())
+    return us or None
+
+
+def _breakdown(label: str, tex: Texture, pf, decode, smi: str) -> None:
+    """Where the time of one warm 4096^2 texture call goes, stage by stage
+    (host clock, synchronised after each stage), with `decode` the format's
+    wrapper; then the whole call, median of 5."""
+    src = F.texture_pixel_format(tex.format)
+    dst = pf or src
+    stages = {}
+
+    def stage(name, fn):
         torch.cuda.synchronize()
-    us = [getattr(e, "device_time_total", None)
-          or getattr(e, "cuda_time_total", 0)
-          for e in prof.key_averages()
-          if any(k in e.key for k in keys)
-          and str(e.device_type).endswith("CUDA")]
-    return sum(us) / calls if us and sum(us) else None
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    for _ in range(2):                               # the second is warm
+        raw = tex.data.reshape(tex.n_blocks, tex.block_size)
+        w = stage("words_from_bytes", lambda: torch.from_numpy(
+            words_from_bytes(raw)))
+        w = stage("host_to_device", lambda: w.cuda())
+        pix, valid = stage("kernel", lambda: decode(w))
+        conv = stage("convert", lambda: CD.convert_pixels_device(
+            pix.view(CD.repr_dtype(src)).reshape(
+                tex.n_blocks * 16, CD.repr_lanes(src)), src, dst)
+            .reshape(tex.n_blocks, 16, -1))
+        tiles = stage("zero_invalid", lambda: torch.where(
+            valid[:, None, None], conv, 0))
+        img = stage("assemble", lambda: engine._assemble(tiles, tex))
+        stage("device_to_host", lambda: CD.to_bytes(img))
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decompress_texture_linear(tex, pf, backend="device",
+                                         device="cuda")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    print(f"texture breakdown: {label} {tex.width}x{tex.height} -> "
+          f"{F.format_name(dst)}, warm, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; whole call median of 5 {wall:.3f} ms "
+          f"({tex.n_blocks / wall * 1e3:.4g} blocks/s) on {smi}")
 
 
 def _texture_breakdown(blocks: dict, smi: str) -> None:
-    """Where the time of one warm 4096^2 texture call goes, stage by stage
-    (host clock, synchronised after each stage), for a 64 B, a 16 B and a
-    128 B output per block in the native format, for BC1 to BGRA8 (an R/B
-    swap) and for BPTC_FLOAT to RGBA8 (the viewer's format, three
-    conversion steps); then the whole call, median of 5."""
+    """The breakdown (_breakdown) for a 64 B, a 16 B and a 128 B output per
+    block in the native format, for BC1 to BGRA8 (an R/B swap) and for
+    BPTC_FLOAT to RGBA8 (the viewer's format, three conversion steps)."""
     for variant, pf in (("bc1", None), ("bc1", F.BGRA8), ("rgtc1", None),
                         ("bptc_float", None), ("bptc_float", F.RGBA8)):
         tex = _texture_calls(variant, blocks[variant])[0][1]
-        src = F.texture_pixel_format(tex.format)
-        dst = pf or src
-        stages = {}
-
-        def stage(name, fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = (time.perf_counter() - t0) * 1e3
-            return out
-
-        for _ in range(2):                           # the second is warm
-            raw = tex.data.reshape(tex.n_blocks, tex.block_size)
-            w = stage("words_from_bytes", lambda: torch.from_numpy(
-                words_from_bytes(raw)))
-            w = stage("host_to_device", lambda: w.cuda())
-            pix, valid = stage("kernel", lambda: _wrapper(variant)(w))
-            conv = stage("convert", lambda: CD.convert_pixels_device(
-                pix.view(CD.repr_dtype(src)).reshape(
-                    _N_BIG * 16, CD.repr_lanes(src)), src, dst)
-                .reshape(_N_BIG, 16, -1))
-            tiles = stage("zero_invalid", lambda: torch.where(
-                valid[:, None, None], conv, 0))
-            img = stage("assemble", lambda: engine._assemble(tiles, tex))
-            stage("device_to_host", lambda: CD.to_bytes(img))
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine.decompress_texture_linear(tex, pf, backend="device",
-                                             device="cuda")
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = statistics.median(walls)
-        print(f"texture breakdown: {variant} {_TEX}x{_TEX} -> "
-              f"{F.format_name(dst)}, warm, ms: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-              + f"; whole call median of 5 {wall:.3f} ms "
-              f"({_N_BIG / wall * 1e3:.4g} blocks/s) on {smi}")
+        _breakdown(variant, tex, pf, _wrapper(variant), smi)
 
 
-def _bc6h_mode_timing(blocks: np.ndarray, smi: str, rounds: int = 7) -> dict:
-    """Mode-sorted decode, measured for BC6H: each variant's kernel time
-    per call (CUDA events, _time_ms) on the 1,048,576 texture blocks
-    (modes mixed), on the same blocks sorted by mode code, and on each of
-    14 batches that keep those blocks' bits but force one mode code.  Each
-    round times every batch once in a fresh random order, so clock and
-    power drift fall on all batches alike; a batch's time is its median
-    over the rounds.  Returns {variant: {batch: ms}}."""
+def _bptc_texture(smi: str) -> int:
+    """A 4096^2 BPTC (BC7) texture of the tool's blocks (modes uniform over
+    0-7) through engine.decompress_texture_linear(backend="device"): one
+    launch of the BC7 kernel, bytes equal to the same call with the plain
+    version swapped in (no launch); then its stage breakdown.  Returns the
+    launches of the call."""
+    tex = Texture.new(F.BY_NAME["BPTC"].fmt, MP.tool_blocks(_N_BIG), _TEX,
+                      _TEX)
+    bptc.KERNEL_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.decompress_texture_linear(tex, None, backend="device",
+                                           device="cuda")
+    wall = time.perf_counter() - t0
+    launches = bptc.KERNEL_LAUNCHES
+    if engine.LAST_BACKEND != "device" or launches != 1:
+        raise AssertionError(f"BPTC texture call: backend "
+                             f"{engine.LAST_BACKEND}, launches {launches}")
+    if out.dtype != np.uint8 or out.shape != (_TEX * _TEX * 4,):
+        raise AssertionError(f"BPTC texture call: bad output {out.dtype} "
+                             f"{out.shape}")
+    kernel_decode = bptc.decode_bptc
+    bptc.decode_bptc = bptc.decode_bptc_plain
+    try:
+        plain = engine.decompress_texture_linear(tex, None, backend="device",
+                                                 device="cuda")
+    finally:
+        bptc.decode_bptc = kernel_decode
+    if bptc.KERNEL_LAUNCHES != launches or not np.array_equal(out, plain):
+        raise AssertionError("BPTC texture call: kernel and plain bytes "
+                             "differ, or the plain run launched")
+    print(f"main path (texture engine, BPTC): decompress_texture_linear("
+          f"backend='device') on a {_TEX}x{_TEX} BPTC texture, one launch "
+          f"of bc7_kernel, byte-equal to the plain version; "
+          f"{wall * 1e3:.3f} ms host bytes in to host bytes out (first "
+          f"call) on {smi}")
+    _breakdown("bptc", tex, None, bptc.decode_bptc, smi)
+    return launches
+
+
+# Mode of each value of a BC7 block's byte 0 (its lowest set bit; 0 has
+# none and decodes as mode 0).
+_BC7_MODE = np.array([0 if b == 0 else (b & -b).bit_length() - 1
+                      for b in range(256)])
+# bc7.cu's tile: 128 threads x 2 blocks; bc6h.cu's: 128 blocks.
+_BC7_TILE, _BC6H_TILE = 256, 128
+def _mode_batches(blocks: np.ndarray, key: np.ndarray, codes) -> dict:
+    """The blocks (modes mixed), the same blocks sorted by their mode key,
+    and one batch per (code, width) that keeps the blocks' bits but sets
+    byte 0's low `width` bits to `code`."""
     batches = {"mixed": blocks,
-               "sorted": blocks[np.argsort(_bc6h_code_key(blocks),
-                                           kind="stable")]}
-    for m, (code, width) in enumerate(_BC6H_CODES[:14]):
+               "sorted": blocks[np.argsort(key, kind="stable")]}
+    for m, (code, width) in enumerate(codes):
         b = blocks.copy()
         b[:, 0] = (b[:, 0] & (0xFF ^ ((1 << width) - 1))) | code
         batches[f"mode{m}"] = b
-    words = {k: _words(b) for k, b in batches.items()}
+    return batches
+
+
+def _device_ms(fn, inner: int = 20) -> float:
+    """Device time per call of fn(), by CUDA events around `inner`
+    back-to-back calls enqueued behind a spin kernel: the launches queue up
+    while it runs, so host enqueue time falls outside the events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)        # about 2 ms at 1.98 GHz
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
+def _mode_batch_timing(smi: str, rounds: int = 11) -> dict:
+    """Mode divergence, measured: device time per call (_device_ms) of the
+    BC7 kernel on 1,048,576 of the tool's blocks (modes uniform over 0-7),
+    on the same blocks sorted by mode and on 8 batches that keep those
+    bits but force one mode; and of the BC6H kernel (both signs) on
+    1,048,576 blocks drawn as the texture path draws them (mode codes
+    uniform over the 14 modes and the 4 reserved codes), sorted, and forced
+    to each of the 14 modes.  Each round times every (kernel, batch) once
+    in a fresh random order, so clock and power drift fall on all alike;
+    the result is the median over the rounds.  Every batch's output is
+    first held bit-exact to the plain version, and each kernel at the edge
+    sizes of its tile.  torch.profiler reads each kernel on the mixed batch
+    before and after the rounds, with the launch records it kept: the two
+    methods side by side, and whether the rounds move a later reading.
+    Returns {(kernel, batch): ms}."""
+    rng = np.random.default_rng(_SEED)
+    bc7_blocks = MP.tool_blocks(_N_BIG)
+    bc6h_blocks = bc6h_mode_blocks(_N_BIG, rng)
+    batches = {
+        "bc7": _mode_batches(bc7_blocks, _BC7_MODE[bc7_blocks[:, 0]],
+                             [(1 << m, m + 1) for m in range(8)]),
+        "bc6h": _mode_batches(bc6h_blocks, _bc6h_code_key(bc6h_blocks),
+                              _BC6H_CODES[:14])}
+    words = {(fam, k): _words(b) for fam, bs in batches.items()
+             for k, b in bs.items()}
+    fns = {"bc7_kernel": ("bc7", bptc.decode_bptc, bptc.decode_bptc_plain),
+           "bc6h_kernel<0>": ("bc6h", bptc_float.decode_bptc_float,
+                              bptc_float.decode_bptc_float_plain),
+           "bc6h_kernel<1>": ("bc6h", bptc_float.decode_bptc_signed_float,
+                              bptc_float.decode_bptc_signed_float_plain)}
+    for name, (fam, fn, plain) in fns.items():
+        for k in batches[fam]:
+            _compare(words[(fam, k)], _FULL, 0, fn, plain, f"{name} {k}")
+        tile = _BC7_TILE if fam == "bc7" else _BC6H_TILE
+        for n in (1, tile - 1, tile, tile + 1, 256, 3 * tile + 5):
+            for mm, fl in ((_FULL, 0), (0x55, 2)):
+                _compare(words[(fam, "mixed")][:n].contiguous(), mm, fl, fn,
+                         plain, f"{name} N={n}")
+    torch.cuda.synchronize()
+    print(f"bits: bc7_kernel and bc6h_kernel<0>/<1> bit-exact (tolerance 0) "
+          f"vs their plain versions on every mode batch and at N = 1, T - 1, "
+          f"T, T + 1, 256, 3T + 5 (T = {_BC7_TILE} / {_BC6H_TILE})")
+
+    def profiled():
+        """{kernel: (launch records of 10 calls, their min, median and
+        max us)}."""
+        out = {}
+        for name, (fam, fn, _) in fns.items():
+            d = sum(_profile(lambda: fn(words[(fam, "mixed")]),
+                             (name.split("<")[0],), 10).values(), [])
+            out[name] = (len(d), min(d), statistics.median(d), max(d)) \
+                if d else (0, math.nan, math.nan, math.nan)
+        return out
+
+    before = profiled()
+    jobs = [(name, fam, fn, k) for name, (fam, fn, _) in fns.items()
+            for k in batches[fam]]
     order = np.random.default_rng(_SEED)
-    out = {}
-    for variant in ("bptc_float", "bptc_signed_float"):
-        fn = _wrapper(variant)
-        ms = {k: [] for k in words}
-        for _ in range(rounds):
-            for k in order.permutation(list(words)):
-                w = words[k]
-                ms[k].append(_time_ms(lambda: fn(w), reps=5, inner=10))
-        out[variant] = {k: statistics.median(v) for k, v in ms.items()}
-        single = [out[variant][f"mode{m}"] for m in range(14)]
-        print(f"bc6h modes: {variant} N={_N_BIG}, ms per call, median of "
-              f"{rounds} shuffled rounds: mixed {out[variant]['mixed']:.5f} "
-              f"(rounds {min(ms['mixed']):.5f}-{max(ms['mixed']):.5f}), "
-              f"sorted {out[variant]['sorted']:.5f}, single modes "
-              f"{min(single):.5f}-{max(single):.5f} ("
-              + ", ".join(f"{m} {t:.5f}" for m, t in enumerate(single))
-              + f") on {smi}")
+    ms = {(name, k): [] for name, _, _, k in jobs}
+    for _ in range(rounds):
+        for i in order.permutation(len(jobs)):
+            name, fam, fn, k = jobs[i]
+            w = words[(fam, k)]
+            ms[(name, k)].append(_device_ms(lambda: fn(w)))
+    out = {key: statistics.median(v) for key, v in ms.items()}
+    after = profiled()
+    for name in fns:
+        ks = [k for n, k in out if n == name]
+        single = [k for k in ks if k.startswith("mode")]
+        line = ", ".join(f"{k} {out[(name, k)] * 1e3:.2f} (rounds "
+                         f"{min(ms[(name, k)]) * 1e3:.2f}-"
+                         f"{max(ms[(name, k)]) * 1e3:.2f})"
+                         for k in ks if k in ("mixed", "sorted"))
+        if single:
+            line += (", single modes " + ", ".join(
+                f"{k[4:]} {out[(name, k)] * 1e3:.2f}" for k in single))
+        print(f"mode batches: {name} N={_N_BIG}, device us per call, median "
+              f"of {rounds} shuffled rounds: {line} on {smi}")
+        print(f"mode batches: {name} N={_N_BIG} mixed, torch.profiler over "
+              f"10 calls, launch records and their min / median / max us: "
+              + "; ".join(f"{when} the rounds {r[0]}, {r[1]:.2f} / "
+                          f"{r[2]:.2f} / {r[3]:.2f}"
+                          for when, r in (("before", before[name]),
+                                          ("after", after[name])))
+              + f" on {smi}")
     return out
 
 
@@ -1044,7 +1198,6 @@ def _texture_phase(rng, smi: str, sass: dict):
     _phase("cli", _cli_path, blocks)
     _phase("texture breakdown", _texture_breakdown, blocks, smi)
     times = _phase("texture timing", _bc_timing, blocks)
-    _phase("bc6h mode batches", _bc6h_mode_timing, blocks["bptc_float"], smi)
     device_us = _phase("texture device time", _device_us, blocks)
     bounds = {v: _variant_bound(v, _N_BIG, sass) for v in _VARIANTS}
     entries = []
@@ -1279,6 +1432,10 @@ def main() -> None:
     launches = _phase("control step", _main_path, rng, smi)
     texture_kernels = _texture_phase(rng, smi, sass)
     tool_kernels = _tools_phase(smi, sass)
+    _phase("bptc texture", _bptc_texture, smi)
+    # Last: its rounds of back-to-back launches are not to move the device
+    # times read before it.
+    _phase("mode batches", _mode_batch_timing, smi)
     print(f"phase all: {time.perf_counter() - t0:.2f} s")
     bound, by = _bound(256 * (16 + 64 + 1), 256, ("bc7_kernel", None), sass)
     print(json.dumps({"kernels": [{

@@ -7,22 +7,31 @@
 //
 // The TPU body decoded all 14 modes per lane and chose by select trees;
 // here each thread loads its block as one 16 B vector, takes its mode's
-// field scatter through a switch, runs the endpoint and pixel arithmetic
-// once in registers and writes its 128 B payload as eight 16 B stores.
+// field scatter through a switch and runs the endpoint and pixel
+// arithmetic once in registers.
 //
 // What bounds it on this card: per block 16 B in, 128 B out and 1 B valid,
-// against roughly 600-700 integer operations (about 60 for the mode's
-// field scatter, 100 for the endpoints, 30 per pixel).  At 3.35 TB/s and
-// roughly 17 Tops/s of 32-bit integer throughput the ridge is near 5
-// operations per byte; at about 4.5 per byte this kernel sits just below
-// it, and the 64 B-output kernels of bc.cu and etc_eac.cu are capped by
-// their scattered per-thread stores at 1.3-1.7 TB/s.  A warp whose blocks
-// have different modes runs each mode's case in turn, but the cases are
-// short (straight-line field extracts); the shared arithmetic is not
-// duplicated.
+// 45.4 us of HBM time at N = 1,048,576.  The static SASS count over every
+// mode's case is 1,486 (unsigned) / 1,886 (signed) integer instructions per
+// thread in the first design.  That design wrote each thread's 128 B as
+// eight 16 B stores at a 128 B stride across the warp (each store
+// instruction touching 32 lines) and took 190-197 us on an H100 SXM (700
+// W), a mode-sorted batch 4% longer.
 //
-// Left for later work: coalesced stores through shared memory (a thread's
-// 128 B lie at that stride across the warp); mode-sorted batches.
+// This design: a CUDA block's 128 threads take a tile of 128 consecutive
+// blocks, order them by mode (dtx::order_rows; a reserved code with mode
+// 0, whose fields it decodes) and decode them in that order into shared
+// memory (dtx::TileOut: 128 B rows, XOR swizzle, 16 KB and 128 B of valid
+// flags); after a __syncthreads() the tile's 16 KB leave in order, each
+// warp store instruction covering 512 contiguous bytes.  With the stores
+// coalesced, a warp's mix of modes became the cost: without the order the
+// mixed batch took 78.6 / 93.6 us against 56.5 / 65.9 us for one-mode
+// batches; with it 63.0 / 79.5 us (chip_smoke.py's "mode batches" phase).
+// A 256-block tile (two blocks per thread) ran the mixed batch in 66.5 /
+// 76.6 us, so the tile stays at 128.  What bounds it now: one-mode batches
+// take 57 us unsigned (80% of the byte time) and 64-70 us signed, which
+// issues more (2,010 static integer instructions per thread against
+// 1,560); the mode mix adds 11% / 16% on mixed batches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,21 +42,53 @@ namespace {
 
 using dtx::grid;
 using dtx::kThreads;
-using dtx::store_words;
 
+constexpr int kRounds = 1;  // blocks per thread: a tile of 128
+
+// A CUDA block's 128 threads decode a tile of 128 * kRounds consecutive
+// blocks into shared memory and store the tile in order.  The tile's blocks
+// are first ordered by mode (dtx::order_rows; reserved codes with mode 0,
+// whose fields they decode) and decoded in that order.
 template <bool kSigned>
 __global__ void __launch_bounds__(kThreads)
     bc6h_kernel(const uint4* __restrict__ words, long long n,
                 uint32_t mode_mask, uint4* __restrict__ pixels,
                 bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 w = words[i];
-  uint32_t out[32];
-  const bool ok =
-      dtx::bc6h_decode_block<kSigned>(w.x, w.y, w.z, w.w, mode_mask, out);
-  store_words<32>(pixels + 8 * i, out);
-  valid[i] = ok;
+  constexpr int kTile = kThreads * kRounds;
+  constexpr uint32_t kModes = 14;
+  __shared__ uint4 s_words[kTile];
+  __shared__ dtx::TileOut<32, kTile> s_out;
+  __shared__ uint16_t s_order[kTile];
+  __shared__ uint32_t s_count[kModes + 1];
+  const long long base = (long long)blockIdx.x * kTile;
+  const int rows = n - base < kTile ? (int)(n - base) : kTile;
+  const int t = threadIdx.x;
+  uint32_t bin[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int e = r * kThreads + t;
+    bin[r] = kModes;
+    if (e < rows) {
+      const uint4 w = words[base + e];
+      s_words[e] = w;
+      const int mode = dtx::bc6h_mode(w.x);
+      bin[r] = mode < 0 ? 0u : (uint32_t)mode;
+    }
+  }
+  dtx::order_rows<kRounds, kModes>(bin, s_count, s_order);
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const int j = r * kThreads + t;
+    if (j >= rows) break;
+    const int e = s_order[j];
+    const uint4 w = s_words[e];
+    uint32_t out[32];
+    const bool ok =
+        dtx::bc6h_decode_block<kSigned>(w.x, w.y, w.z, w.w, mode_mask, out);
+    s_out.put(e, out, ok);
+  }
+  __syncthreads();
+  s_out.store(pixels + base * 8, valid + base, rows);
 }
 
 }  // namespace
@@ -65,7 +106,7 @@ extern "C" int dtx_bc6h_decode(const void* words, long long n,
   if (variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = variant ? bc6h_kernel<true> : bc6h_kernel<false>;
-  kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid(n, kThreads * kRounds), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), n, mode_mask,
       static_cast<uint4*>(pixels), static_cast<bool*>(valid));
   return (int)cudaGetLastError();

@@ -142,6 +142,16 @@ DTX_HD uint32_t bc6h_finish(int v) {
   return (uint32_t)(v * 31) >> 6;
 }
 
+// A block's mode from the 2-then-5-bit code in word 0, or -1 for a
+// reserved code (19, 23, 27, 31), which decodes as mode 0.
+DTX_HD int bc6h_mode(uint32_t w0) {
+  const uint32_t m2 = w0 & 3u, code5 = w0 & 31u;
+  return m2 < 2        ? (int)m2
+         : m2 == 2     ? 2 + (int)(code5 >> 2)
+         : code5 < 16  ? 10 + (int)(code5 >> 2)
+                       : -1;
+}
+
 // Decodes one block into its FLOAT_RGBX16 payload, out[2i] = R | G << 16
 // and out[2i + 1] = B (X = 0) for pixel i = 4y + x, and returns whether
 // the block is valid under mode_mask.
@@ -151,11 +161,7 @@ DTX_HD bool bc6h_decode_block(uint32_t w0, uint32_t w1, uint32_t w2,
                               uint32_t out[32]) {
   const uint64_t lo = (uint64_t)w0 | ((uint64_t)w1 << 32);
   const uint64_t hi = (uint64_t)w2 | ((uint64_t)w3 << 32);
-  const uint32_t m2 = w0 & 3u, code5 = w0 & 31u;
-  const int mode_raw = m2 < 2    ? (int)m2
-                       : m2 == 2 ? 2 + (int)(code5 >> 2)
-                       : code5 < 16 ? 10 + (int)(code5 >> 2)
-                                    : -1;
+  const int mode_raw = bc6h_mode(w0);
 
   // Raw endpoint fields, endpoint bits and delta bits of the mode.
   struct {

@@ -14,6 +14,16 @@
 //     R/G/B after interpolation.
 //   * interpolation ((64-w)*e0 + w*e1 + 32) >> 6, w = floor((64i+c)/d).
 //
+// The decode has two parts.  bc7_unpack<M> is written once per mode: every
+// field position and per-mode constant is a compile-time value, so each
+// field read folds to a shift or two.  It reduces the block to a Bc7Setup:
+// packed endpoints, the subset word, weights, the rotation, and each index
+// stream laid out at a uniform width (the bit an anchor pixel does not
+// store put back as a 0).  bc7_pixels, one code path for every mode, then
+// computes the 16 pixels from the setup.  bc7_decode_block dispatches on
+// the mode to the unpack and runs bc7_pixels once, so a warp of mixed
+// modes diverges only in the short unpack.
+//
 // All arithmetic is unsigned 32/64-bit and no shift reaches the operand
 // width (a C++ shift by >= width is undefined, where lax.shift_left gives 0).
 
@@ -82,7 +92,7 @@ constexpr uint32_t kAPP = 0x68860000u;  // + p-bit        0 0 0 0 6 8 8 6
 constexpr uint32_t kIB = 0x24222233u;   // index bits     3 3 2 2 2 2 4 2
 constexpr uint32_t kIB2 = 0x00230000u;  // second stream  0 0 0 0 3 2 0 0
 
-DTX_HD uint32_t nib(uint32_t packed, uint32_t mode) {
+DTX_HD constexpr uint32_t nib(uint32_t packed, uint32_t mode) {
   return (packed >> (4u * mode)) & 0xFu;
 }
 
@@ -94,19 +104,26 @@ DTX_HD uint32_t lowest_set_bit(uint32_t x) {  // x != 0
 #endif
 }
 
-// `width` (<= 16) bits of the 128-bit block (lo | hi << 64) at bit
-// `start`, where start + width <= 128.
+// A block's mode: the lowest set bit of byte 0.  byte0 == 0 has none and
+// is decoded as mode 0 (and marked invalid).
+DTX_HD uint32_t bc7_mode(uint32_t word0) {
+  const uint32_t byte0 = word0 & 0xFFu;
+  return byte0 ? lowest_set_bit(byte0) : 0u;
+}
+
+// The 64 bits of the 128-bit block (lo | hi << 64) from bit `start`
+// (< 128) up, zero above bit 127.
+DTX_HD uint64_t bits64(uint64_t lo, uint64_t hi, uint32_t start) {
+  if (start >= 64) return hi >> (start - 64);
+  if (start == 0) return lo;
+  return (lo >> start) | (hi << (64 - start));
+}
+
+// `width` (<= 16) bits of the block at bit `start`, where start + width
+// <= 128.
 DTX_HD uint32_t bits(uint64_t lo, uint64_t hi, uint32_t start,
                      uint32_t width) {
-  uint64_t v;
-  if (start >= 64) {
-    v = hi >> (start - 64);
-  } else if (start == 0) {
-    v = lo;
-  } else {
-    v = (lo >> start) | (hi << (64 - start));
-  }
-  return (uint32_t)v & ((1u << width) - 1u);
+  return (uint32_t)bits64(lo, hi, start) & ((1u << width) - 1u);
 }
 
 // Endpoint to 8 bits: append the p-bit if the mode has one, shift up,
@@ -140,6 +157,25 @@ DTX_HD uint32_t interp(uint32_t e0, uint32_t e1, uint32_t w) {
   return ((64u - w) * e0 + w * e1 + 32u) >> 6;
 }
 
+// Byte k of the result is byte (sel >> 4k) & 3 of x.
+DTX_HD uint32_t permute_bytes(uint32_t x, uint32_t sel) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(x, 0u, sel);
+#else
+  uint32_t r = 0;
+  for (uint32_t k = 0; k < 4; ++k) {
+    r |= ((x >> (8 * ((sel >> (4 * k)) & 3u))) & 0xFFu) << (8 * k);
+  }
+  return r;
+#endif
+}
+
+// x with a 0 bit put in at bit p (< 64): the bits from p up move up one.
+DTX_HD uint64_t insert_zero(uint64_t x, uint32_t p) {
+  const uint64_t low = (uint64_t(1) << p) - 1u;
+  return (x & low) | ((x & ~low) << 1);
+}
+
 // Where a block's partition comes from: the subset word (2 bits per pixel)
 // and the second and third anchor positions, for `ns` subsets and
 // partition id `psid`.
@@ -147,12 +183,14 @@ struct Partition {
   uint32_t subsets, a2, a3;
 };
 
-// The production kernel's source: the tables above.
+// The production kernel's source: the tables above (one subset needs
+// none).  Their anchors are never pixel 0 and never equal.
 struct TablePartition {
+  static constexpr bool kTableAnchors = true;
   DTX_HD Partition operator()(uint32_t ns, uint32_t psid) const {
-    uint32_t subsets = 0;
-    if (ns == 2) subsets = DTX_LOOKUP(kSubset2, psid);
-    if (ns == 3) subsets = DTX_LOOKUP(kSubset3, psid);
+    if (ns == 1) return {0u, 0u, 0u};
+    const uint32_t subsets = ns == 2 ? DTX_LOOKUP(kSubset2, psid)
+                                     : DTX_LOOKUP(kSubset3, psid);
     const uint32_t anchors = DTX_LOOKUP(kAnchors, psid);
     return {subsets, ns == 2 ? (anchors & 0xFu) : ((anchors >> 4) & 0xFu),
             (anchors >> 8) & 0xFu};
@@ -164,7 +202,9 @@ struct TablePartition {
 // every subset count, and `pos`, the anchors packed a0 | a1 << 4 | a2 << 8
 // (the second of two subsets in bits 0-3, the second and third of three in
 // bits 4-7 and 8-11), as tools/mxu_probe.py:_bc7_kernel_pre reads them.
+// Any anchors are taken, the tables' or not.
 struct PreGatheredPartition {
+  static constexpr bool kTableAnchors = false;
   uint32_t sub32, pos;
   DTX_HD Partition operator()(uint32_t ns, uint32_t) const {
     return {sub32, ns == 2 ? (pos & 0xFu) : ((pos >> 4) & 0xFu),
@@ -172,120 +212,269 @@ struct PreGatheredPartition {
   }
 };
 
-// Decodes one block into 16 packed RGBA8 pixels (R in the low byte, pixel
-// i = 4y + x) and returns whether the block is valid under mode_mask and
-// flags (0x2 rejects modes >= 4, 0x4 rejects modes < 4).  `partition`
-// gives the subset word and anchors (TablePartition for BC7 itself).
-template <class PartitionSource>
-DTX_HD bool bc7_decode_block(uint64_t lo, uint64_t hi, uint32_t mode_mask,
-                             uint32_t flags, uint32_t out[16],
-                             const PartitionSource& partition) {
-  const uint32_t byte0 = (uint32_t)lo & 0xFFu;
-  const uint32_t m = byte0 ? lowest_set_bit(byte0) : 0u;
+// A block reduced to what its pixels need, whatever its mode.
+struct Bc7Setup {
+  uint32_t ep[3][2];      // endpoint k of subset j, packed RGBA8
+  uint32_t subsets;       // subset of pixel i at bits 2i..2i+1
+  uint64_t color, alpha;  // index of pixel i at bits [n*i, n*i + n)
+  uint32_t cbits, abits;  // n of each stream: 2, 3 or 4
+  Weights wc, wa;
+  uint32_t perm;          // the rotation, as a permute_bytes selector
+};
 
-  const uint32_t ns = nib(kNS, m), pb = nib(kPB, m), rb = nib(kRB, m);
-  const uint32_t cp = nib(kCP, m), cpp = nib(kCPP, m);
-  const uint32_t ap = nib(kAP, m), app = nib(kAPP, m);
-  const uint32_t ib = nib(kIB, m), ib2 = nib(kIB2, m);
-  const bool has_pbits = cpp > cp || app > ap;
+// A stream of 16 `ib`-bit indices built pixel by pixel from `window` (the
+// 64 bits from 3 below the first index, zero above bit 127), for any
+// anchors a2, a3: pixel i lies 3 + ib*i - before bits in, before the anchor
+// pixels below i, each counted once (as tools/mxu_probe.py:_bc7_kernel_pre
+// does with its anchor bitmask), and is one bit narrower where it is an
+// anchor.  bc7_unpack's bit insertion gives the same for distinct anchors
+// past pixel 0; this serves the others (pre-gathered words not from the
+// tables), whose last index may run past bit 127 and read 0 there.
+DTX_HD uint64_t bc7_stream_any_anchors(uint64_t window, uint32_t ib,
+                                       uint32_t ns, uint32_t a2,
+                                       uint32_t a3) {
+  const bool on3 = ns == 3 && a3 != 0 && a3 != a2;
+  uint64_t u = 0;
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (uint32_t i = 0; i < 16; ++i) {
+    const bool anchor = i == 0 || i == a2 || (ns == 3 && i == a3);
+    const uint32_t before = (i > 0 ? 1u : 0u) +
+                            (a2 != 0 && a2 < i ? 1u : 0u) +
+                            (on3 && a3 < i ? 1u : 0u);
+    const uint32_t idx = (uint32_t)(window >> (3 + ib * i - before)) &
+                         ((1u << (ib - (anchor ? 1u : 0u))) - 1u);
+    u |= (uint64_t)idx << (ib * i);
+  }
+  return u;
+}
 
-  uint32_t pos = m + 1;
-  const uint32_t psid = bits(lo, hi, pos, pb);
-  pos += pb;
-  const uint32_t rot = bits(lo, hi, pos, rb);
-  pos += rb;
-  const uint32_t isb = m == 4 ? bits(lo, hi, pos, 1) : 0u;
-  pos += m == 4 ? 1u : 0u;
-  const uint32_t ep_start = pos;
-  const uint32_t alpha_start = ep_start + cp * ns * 6;
-  const uint32_t pbit_start = alpha_start + ap * ns * 2;
-  const uint32_t index_start =
-      pbit_start + (has_pbits ? (m == 1 ? 2u : ns * 2) : 0u);
-  const uint32_t sec_start = index_start + ib * 16 - ns;
+// Unpacks one block of mode M (the block's bc7_mode) into its Bc7Setup
+// (decompress-bptc.c:354-512).  `partition` gives the subset word and
+// anchors (TablePartition for BC7 itself).
+template <uint32_t M, class PartitionSource>
+DTX_HD Bc7Setup bc7_unpack(uint64_t lo, uint64_t hi,
+                           const PartitionSource& partition) {
+  constexpr uint32_t ns = nib(kNS, M), pb = nib(kPB, M), rb = nib(kRB, M);
+  constexpr uint32_t cp = nib(kCP, M), cpp = nib(kCPP, M);
+  constexpr uint32_t ap = nib(kAP, M), app = nib(kAPP, M);
+  constexpr uint32_t ib = nib(kIB, M), ib2 = nib(kIB2, M);
+  constexpr bool has_pbits = cpp > cp || app > ap;
+  constexpr uint32_t rot_start = M + 1 + pb;
+  constexpr uint32_t ep_start = rot_start + rb + (M == 4 ? 1u : 0u);
+  constexpr uint32_t alpha_start = ep_start + cp * ns * 6;
+  constexpr uint32_t pbit_start = alpha_start + ap * ns * 2;
+  constexpr uint32_t index_start =
+      pbit_start + (has_pbits ? (M == 1 ? 2u : ns * 2) : 0u);
+  constexpr uint32_t prim_bits = ib * 16 - ns;  // as stored
+  constexpr uint32_t sec_start = index_start + prim_bits;
 
-  // ep[c][j][k]: channel c (RGBA), subset j, endpoint k, 8 bits.
-  uint32_t ep[4][3][2];
+  const uint32_t psid = bits(lo, hi, M + 1, pb);
+  const uint32_t rot = bits(lo, hi, rot_start, rb);
+  const uint32_t isb = M == 4 ? bits(lo, hi, rot_start + rb, 1) : 0u;
+
+  Bc7Setup s;
 DTX_UNROLL
   for (uint32_t j = 0; j < 3; ++j) {
 DTX_UNROLL
     for (uint32_t k = 0; k < 2; ++k) {
       const bool used = j < ns;
       uint32_t pbit = 0;
-      if (used && has_pbits && !(m == 6 && k == 1)) {
-        pbit = bits(lo, hi, pbit_start + (m == 1 ? j : j * 2 + k), 1);
+      if (used && has_pbits && !(M == 6 && k == 1)) {
+        pbit = bits(lo, hi, pbit_start + (M == 1 ? j : j * 2 + k), 1);
       }
+      uint32_t rgba = 0;
 DTX_UNROLL
       for (uint32_t c = 0; c < 3; ++c) {
         const uint32_t raw =
             used ? bits(lo, hi, ep_start + (c * ns * 2 + j * 2 + k) * cp, cp)
                  : 0u;
-        ep[c][j][k] = dequant(raw, pbit, cp, cpp);
+        rgba |= dequant(raw, pbit, cp, cpp) << (8 * c);
       }
-      if (ap == 0) {
-        ep[3][j][k] = 0xFFu;
-      } else {
+      uint32_t a = 0xFFu;
+      if (ap != 0) {
         const uint32_t raw =
             used ? bits(lo, hi, alpha_start + (j * 2 + k) * ap, ap) : 0u;
-        ep[3][j][k] = dequant(raw, pbit, ap, app);
+        a = dequant(raw, pbit, ap, app);
       }
+      s.ep[j][k] = rgba | (a << 24);
     }
   }
 
   const Partition part = partition(ns, psid);
-  const uint32_t subsets = part.subsets, a2 = part.a2, a3 = part.a3;
+  s.subsets = part.subsets;
 
-  // Stream choice (decompress-bptc.c:381-385, 422-451): with a second
-  // stream, the index-selection bit gives colour the second stream.
+  // The primary stream, each anchor's missing top bit put back as a 0 in
+  // rising pixel order: pixel 0, then the smaller and larger other anchor.
+  uint64_t prim = bits64(lo, hi, index_start);
+  if (prim_bits < 64) prim &= (uint64_t(1) << prim_bits) - 1u;
+  prim = insert_zero(prim, ib - 1);
+  if (ns >= 2) {
+    const uint32_t a2 = part.a2, a3 = part.a3;
+    if (!PartitionSource::kTableAnchors &&
+        (a2 == 0 || (ns == 3 && (a3 == 0 || a3 == a2)))) {
+      prim = bc7_stream_any_anchors(bits64(lo, hi, index_start - 3), ib, ns,
+                                    a2, a3);
+    } else if (ns == 2) {
+      prim = insert_zero(prim, ib * a2 + ib - 1);
+    } else {
+      const uint32_t q1 = a2 < a3 ? a2 : a3, q2 = a2 < a3 ? a3 : a2;
+      prim = insert_zero(prim, ib * q1 + ib - 1);
+      prim = insert_zero(prim, ib * q2 + ib - 1);
+    }
+  }
+  // Modes 4 and 5: a second stream (one subset: anchor pixel 0 only), and
+  // mode 4's index-selection bit gives colour the second stream
+  // (decompress-bptc.c:381-385, 422-451).
+  uint64_t sec = 0;
+  if (ib2 > 0) sec = insert_zero(bits64(lo, hi, sec_start), ib2 - 1);
   const bool color_sec = ib2 > 0 && isb != 0;
   const bool alpha_sec = ib2 > 0 && isb == 0;
-  const Weights wc = weights_for(color_sec ? ib2 : ib);
-  const Weights wa = weights_for(alpha_sec ? ib2 : ib);
+  s.color = color_sec ? sec : prim;
+  s.alpha = alpha_sec ? sec : prim;
+  s.cbits = color_sec ? ib2 : ib;
+  s.abits = alpha_sec ? ib2 : ib;
+  s.wc = weights_for(s.cbits);
+  s.wa = weights_for(s.abits);
+  // Rotation swaps alpha with R, G or B (rot 1, 2, 3) after interpolation.
+  s.perm = rb ? (uint32_t)(0x2310123002133210ull >> (16 * rot)) & 0xFFFFu
+              : 0x3210u;
+  return s;
+}
 
-  const uint32_t sh_r = rot == 1 ? 24u : 0u;
-  const uint32_t sh_g = rot == 2 ? 24u : 8u;
-  const uint32_t sh_b = rot == 3 ? 24u : 16u;
-  const uint32_t sh_a = rot == 0 ? 24u : (rot - 1) * 8u;
-
+// The 16 packed RGBA8 pixels (R in the low byte, pixel i = 4y + x) of an
+// unpacked block: interpolation ((64-w)*e0 + w*e1 + 32) >> 6 per channel,
+// w = floor((64i+c)/d), R and B side by side in the 16-bit halves of one
+// word (a term is at most 64*255 + 32 < 2^16).
+DTX_HD void bc7_pixels(const Bc7Setup& s, uint32_t out[16]) {
+  uint64_t color = s.color, alpha = s.alpha;
+  const uint32_t cmask = (1u << s.cbits) - 1u, amask = (1u << s.abits) - 1u;
 DTX_UNROLL
   for (uint32_t i = 0; i < 16; ++i) {
-    const bool anchor = i == 0 || (ns >= 2 && i == a2) || (ns == 3 && i == a3);
-    const uint32_t before = (i > 0 ? 1u : 0u) + (ns >= 2 && a2 < i ? 1u : 0u) +
-                            (ns == 3 && a3 < i ? 1u : 0u);
-    const uint32_t drop = anchor ? 1u : 0u;
-    const uint32_t prim = bits(lo, hi, index_start + ib * i - before, ib - drop);
-    const uint32_t sec =
-        ib2 ? bits(lo, hi, sec_start + ib2 * i - before, ib2 - drop) : 0u;
-    const uint32_t ci = color_sec ? sec : prim;
-    const uint32_t ai = alpha_sec ? sec : prim;
-    const uint32_t w_c = (ci * wc.mul64 + wc.cm) >> wc.sh;
-    const uint32_t w_a = (ai * wa.mul64 + wa.cm) >> wa.sh;
-
-    const uint32_t s = (subsets >> (2 * i)) & 3u;
-    const uint32_t r = interp(sel3(s, ep[0][0][0], ep[0][1][0], ep[0][2][0]),
-                              sel3(s, ep[0][0][1], ep[0][1][1], ep[0][2][1]),
-                              w_c);
-    const uint32_t g = interp(sel3(s, ep[1][0][0], ep[1][1][0], ep[1][2][0]),
-                              sel3(s, ep[1][0][1], ep[1][1][1], ep[1][2][1]),
-                              w_c);
-    const uint32_t b = interp(sel3(s, ep[2][0][0], ep[2][1][0], ep[2][2][0]),
-                              sel3(s, ep[2][0][1], ep[2][1][1], ep[2][2][1]),
-                              w_c);
-    const uint32_t a = interp(sel3(s, ep[3][0][0], ep[3][1][0], ep[3][2][0]),
-                              sel3(s, ep[3][0][1], ep[3][1][1], ep[3][2][1]),
-                              w_a);
-    // Rotation is a permutation of output byte positions.
-    out[i] = (r << sh_r) | (g << sh_g) | (b << sh_b) | (a << sh_a);
+    const uint32_t ci = (uint32_t)color & cmask;
+    const uint32_t ai = (uint32_t)alpha & amask;
+    color >>= s.cbits;
+    alpha >>= s.abits;
+    const uint32_t wc = (ci * s.wc.mul64 + s.wc.cm) >> s.wc.sh;
+    const uint32_t wa = (ai * s.wa.mul64 + s.wa.cm) >> s.wa.sh;
+    const uint32_t sub = (s.subsets >> (2 * i)) & 3u;
+    const uint32_t e0 = sel3(sub, s.ep[0][0], s.ep[1][0], s.ep[2][0]);
+    const uint32_t e1 = sel3(sub, s.ep[0][1], s.ep[1][1], s.ep[2][1]);
+    const uint32_t rb = (((e0 & 0x00FF00FFu) * (64u - wc) +
+                          (e1 & 0x00FF00FFu) * wc + 0x00200020u) >> 6) &
+                        0x00FF00FFu;
+    const uint32_t g = interp((e0 >> 8) & 0xFFu, (e1 >> 8) & 0xFFu, wc);
+    const uint32_t a = interp(e0 >> 24, e1 >> 24, wa);
+    out[i] = permute_bytes(rb | (g << 8) | (a << 24), s.perm);
   }
+}
 
-  bool valid = byte0 != 0 && ((mode_mask >> m) & 1u) != 0;
-  if ((flags & 0x2u) && m >= 4) valid = false;
-  if ((flags & 0x4u) && m < 4) valid = false;
+// Whether a block of mode `mode` is valid under mode_mask and flags (0x2
+// rejects modes >= 4, 0x4 rejects modes < 4); byte0 == 0 never is.
+DTX_HD bool bc7_valid(uint64_t lo, uint32_t mode, uint32_t mode_mask,
+                      uint32_t flags) {
+  bool valid = (lo & 0xFFu) != 0 && ((mode_mask >> mode) & 1u) != 0;
+  if ((flags & 0x2u) && mode >= 4) valid = false;
+  if ((flags & 0x4u) && mode < 4) valid = false;
   return valid;
+}
+
+// Decodes one block into 16 packed RGBA8 pixels and returns whether it is
+// valid: the mode's unpack, then bc7_pixels.
+template <class PartitionSource>
+DTX_HD bool bc7_decode_block(uint64_t lo, uint64_t hi, uint32_t mode_mask,
+                             uint32_t flags, uint32_t out[16],
+                             const PartitionSource& partition) {
+  const uint32_t mode = bc7_mode((uint32_t)lo);
+  Bc7Setup s;
+  switch (mode) {
+#define DTX_BC7_CASE(M)                       \
+  case M:                                     \
+    s = bc7_unpack<M>(lo, hi, partition);     \
+    break;
+    DTX_BC7_CASE(0) DTX_BC7_CASE(1) DTX_BC7_CASE(2) DTX_BC7_CASE(3)
+    DTX_BC7_CASE(4) DTX_BC7_CASE(5) DTX_BC7_CASE(6)
+#undef DTX_BC7_CASE
+    default:
+      s = bc7_unpack<7>(lo, hi, partition);
+  }
+  bc7_pixels(s, out);
+  return bc7_valid(lo, mode, mode_mask, flags);
 }
 
 DTX_HD bool bc7_decode_block(uint64_t lo, uint64_t hi, uint32_t mode_mask,
                              uint32_t flags, uint32_t out[16]) {
   return bc7_decode_block(lo, hi, mode_mask, flags, out, TablePartition{});
 }
+
+#if defined(__CUDACC__)
+
+// The CUDA kernels' body (bc7.cu, bc7_pre.cu): one CUDA block of kThreads
+// threads decodes a tile of kThreads * kRounds consecutive 4x4 blocks.
+//   1. Each thread loads kRounds of the tile's blocks (16 B loads,
+//      consecutive threads on consecutive blocks) into shared memory, with
+//      the pre-gathered partition words where kPre.
+//   2. The tile's blocks are ordered by mode (order_rows), and rounds of
+//      kThreads threads walk that order, so a warp mostly unpacks one
+//      mode.
+//   3. Each block's pixels go to its own row of the tile in shared memory
+//      (TileOut), and after __syncthreads() the tile's 64 B rows go out in
+//      order as contiguous 16 B stores.
+template <int kRounds, bool kPre>
+__device__ __forceinline__ void bc7_tile(const uint4* __restrict__ words,
+                                         const uint2* __restrict__ pre,
+                                         long long n, uint32_t mode_mask,
+                                         uint32_t flags,
+                                         uint4* __restrict__ pixels,
+                                         bool* __restrict__ valid) {
+  constexpr int kTile = kThreads * kRounds;
+  constexpr uint32_t kModes = 8;
+  __shared__ uint4 s_words[kTile];
+  __shared__ uint2 s_pre[kPre ? kTile : 1];
+  __shared__ TileOut<16, kTile> s_out;
+  __shared__ uint16_t s_order[kTile];
+  __shared__ uint32_t s_count[kModes + 1];
+  const long long base = (long long)blockIdx.x * kTile;
+  const int rows = n - base < kTile ? (int)(n - base) : kTile;
+  const int t = threadIdx.x;
+
+  uint32_t bin[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int e = r * kThreads + t;
+    bin[r] = kModes;
+    if (e < rows) {
+      const uint4 w = words[base + e];
+      s_words[e] = w;
+      if (kPre) s_pre[e] = pre[base + e];
+      bin[r] = bc7_mode(w.x);
+    }
+  }
+  order_rows<kRounds, kModes>(bin, s_count, s_order);
+
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const int j = r * kThreads + t;
+    if (j >= rows) break;
+    const int e = s_order[j];
+    const uint4 w = s_words[e];
+    const uint64_t lo = (uint64_t)w.x | ((uint64_t)w.y << 32);
+    const uint64_t hi = (uint64_t)w.z | ((uint64_t)w.w << 32);
+    uint32_t out[16];
+    bool ok;
+    if (kPre) {
+      ok = bc7_decode_block(lo, hi, mode_mask, flags, out,
+                            PreGatheredPartition{s_pre[e].x, s_pre[e].y});
+    } else {
+      ok = bc7_decode_block(lo, hi, mode_mask, flags, out);
+    }
+    s_out.put(e, out, ok);
+  }
+  __syncthreads();
+  s_out.store(pixels + base * 4, valid + base, rows);
+}
+
+#endif  // __CUDACC__
 
 }  // namespace dtx

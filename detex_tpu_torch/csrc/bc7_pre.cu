@@ -1,13 +1,13 @@
-// BC7 decode with pre-gathered partition words, for Hopper (sm_90a): one
-// thread per 4x4 block.
+// BC7 decode with pre-gathered partition words, for Hopper (sm_90a).
 //
 // Replaces tools/mxu_probe.py:_bc7_kernel_pre (L107), reached through
 // decode_mxu (L312/322): BC7, bit for bit, except that each block's subset
 // word and anchor positions come from an extra (N, 2) input [sub32, pos]
 // (gathered ahead of the kernel by a one-hot matrix product,
 // detex_tpu_torch/tools/mxu_probe.py:pregather) and not from the partition
-// tables.  The per-block decode is bc7.cuh's, with PreGatheredPartition in
-// place of TablePartition, so the two kernels share one source.
+// tables.  The kernel body is bc7.cuh's bc7_tile, the production kernel's,
+// with PreGatheredPartition in place of TablePartition, so the two kernels
+// share one source and one design.
 //
 // On the TPU the experiment asked whether the otherwise idle matrix unit
 // could take the three partition/anchor select trees off the vector unit.
@@ -15,12 +15,15 @@
 // loads, so the question becomes whether 8 B more of input per block
 // (24 B in, 65 B out) costs less than those two dependent loads.
 //
-// What bounds it on this card: as bc7.cu, integer work per block at large
-// N (the decode's arithmetic is unchanged) and launch latency at small N.
+// What bounds it on this card: as bc7.cu, whose note gives the design (a
+// short per-mode unpack and one pixel loop, a 256-block tile per CUDA
+// block ordered by mode, pixels stored from shared memory in order); the
+// pre-gathered words are loaded into the tile beside the block words (2 KB
+// more shared memory), and with any anchors bc7.cuh builds the index
+// stream pixel by pixel where they are not distinct and past pixel 0.
 //
-// Input (N, 4) int32 words (one 16 B load per thread) and (N, 2) int32
-// pre-gathered words (one 8 B load).  Output (N, 16) packed RGBA8 as four
-// 16 B stores per thread, plus (N,) bool valid.
+// Input (N, 4) int32 words and (N, 2) int32 pre-gathered words.  Output
+// (N, 16) packed RGBA8 and (N,) bool valid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,22 +34,15 @@ namespace {
 
 using dtx::kThreads;
 
+constexpr int kRounds = 2;  // blocks per thread: a tile of 256, as bc7.cu
+
 __global__ void __launch_bounds__(kThreads)
     bc7_pre_kernel(const uint4* __restrict__ words,
                    const uint2* __restrict__ pre, long long n,
                    uint32_t mode_mask, uint32_t flags,
                    uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 w = words[i];
-  const uint2 p = pre[i];
-  const uint64_t lo = (uint64_t)w.x | ((uint64_t)w.y << 32);
-  const uint64_t hi = (uint64_t)w.z | ((uint64_t)w.w << 32);
-  uint32_t out[16];
-  const bool ok = dtx::bc7_decode_block(lo, hi, mode_mask, flags, out,
-                                        dtx::PreGatheredPartition{p.x, p.y});
-  dtx::store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  dtx::bc7_tile<kRounds, true>(words, pre, n, mode_mask, flags, pixels,
+                               valid);
 }
 
 }  // namespace
@@ -59,7 +55,8 @@ extern "C" int dtx_bc7_pre_decode(const void* words, const void* pre,
                                   unsigned int flags, void* pixels,
                                   void* valid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  bc7_pre_kernel<<<dtx::grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  bc7_pre_kernel<<<dtx::grid(n, kThreads * kRounds), kThreads, 0,
+                   (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), static_cast<const uint2*>(pre), n,
       mode_mask, flags, static_cast<uint4*>(pixels),
       static_cast<bool*>(valid));

@@ -1,7 +1,8 @@
 // Qualifiers for per-block decode functions that both nvcc (the kernels)
 // and g++ (the host builds the CPU tests load) compile from one source,
-// the read-only tables those functions share, and the kernels' launch
-// geometry (one thread per block, 128 a CUDA block) and store.
+// the read-only tables those functions share, the kernels' launch
+// geometry (128 threads a CUDA block) and their stores: per thread, or
+// staged through shared memory as a tile (TileOut).
 
 #pragma once
 
@@ -39,9 +40,9 @@ namespace dtx {
 
 constexpr int kThreads = 128;
 
-// CUDA blocks for n 4x4 blocks.
-inline unsigned int grid(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+// CUDA blocks for n 4x4 blocks, `tile` of them per CUDA block.
+inline unsigned int grid(long long n, int tile = kThreads) {
+  return (unsigned int)((n + tile - 1) / tile);
 }
 
 // One thread's kWords output words as kWords / 4 16 B vector stores.
@@ -52,6 +53,103 @@ __device__ __forceinline__ void store_words(uint4* dst, const uint32_t* out) {
     dst[q] = make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
                         out[4 * q + 3]);
   }
+}
+
+// The output of a tile of kRows consecutive 4x4 blocks, kWords words each,
+// staged in shared memory so that it leaves in order: put() writes a
+// block's words and valid flag to its row (any thread, any row), and after
+// a __syncthreads() store() copies rows [0, rows) out with consecutive
+// threads on consecutive 16 B chunks, so each warp store instruction
+// writes 512 contiguous bytes, and the valid flags one byte per thread.
+//
+// Layout: rows of kChunks = kWords / 4 16 B chunks, unpadded; chunk c of
+// row r sits at r * kChunks + (c ^ s(r)), s(r) = (r / (8 / kChunks)) %
+// kChunks.  Shared memory serves a 16 B access in phases of 8 threads
+// (128 B, every bank once); in put() 8 consecutive rows' chunk c, and in
+// store() 8 consecutive chunks, then land in 8 distinct 16 B bank groups.
+// (A 16 B pad per row does that for the writes but leaves the copy-out of
+// 64 B rows 2-way conflicted.)
+template <int kWords, int kRows>
+struct TileOut {
+  static constexpr int kChunks = kWords / 4;
+  static_assert(kWords % 4 == 0 && kChunks <= 8 &&
+                    (kChunks & (kChunks - 1)) == 0,
+                "rows of 1, 2, 4 or 8 16 B chunks");
+  uint4 chunk[kRows * kChunks];
+  bool ok[kRows];
+
+  static __device__ __forceinline__ int slot(int r, int c) {
+    return r * kChunks + (c ^ ((r / (8 / kChunks)) & (kChunks - 1)));
+  }
+
+  __device__ __forceinline__ void put(int r, const uint32_t* out,
+                                      bool valid) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      chunk[slot(r, c)] = make_uint4(out[4 * c], out[4 * c + 1],
+                                     out[4 * c + 2], out[4 * c + 3]);
+    }
+    ok[r] = valid;
+  }
+
+  // dst: the tile's first row (kChunks uint4 per row); dst_valid: its
+  // first flag.
+  __device__ __forceinline__ void store(uint4* __restrict__ dst,
+                                        bool* __restrict__ dst_valid,
+                                        int rows) const {
+    for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+      dst[i] = chunk[slot(i / kChunks, i % kChunks)];
+    }
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      dst_valid[i] = ok[i];
+    }
+  }
+};
+
+// Orders a tile's rows by a small key, so that warps walking the order
+// mostly see one key (a decoder's mode).  bin[r] is the key (< kBins) of
+// row r * kThreads + threadIdx.x, or kBins for a slot past the tile's last
+// row.  On return, after a __syncthreads(), order[j] for j below the row
+// count is the j-th row in key order.  Each row's rank among the rows of
+// its key comes from __match_any_sync and one shared-memory count per key
+// and warp step; count (kBins + 1 words) then holds each key's start.
+template <int kRounds, uint32_t kBins>
+__device__ __forceinline__ void order_rows(const uint32_t (&bin)[kRounds],
+                                           uint32_t* count,
+                                           uint16_t* order) {
+  const int t = threadIdx.x;
+  const uint32_t lane = t & 31;
+  if (t <= (int)kBins) count[t] = 0;
+  __syncthreads();
+  uint32_t rank[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const uint32_t peers = __match_any_sync(0xFFFFFFFFu, bin[r]);
+    const int leader = __ffs((int)peers) - 1;
+    uint32_t first = 0;
+    if ((int)lane == leader) {
+      first = atomicAdd(&count[bin[r]], (uint32_t)__popc(peers));
+    }
+    first = __shfl_sync(0xFFFFFFFFu, first, leader);
+    rank[r] = first + __popc(peers & ((1u << lane) - 1u));
+  }
+  __syncthreads();
+  if (t == 0) {  // counts -> starts
+    uint32_t sum = 0;
+    for (uint32_t b = 0; b <= kBins; ++b) {
+      const uint32_t c = count[b];
+      count[b] = sum;
+      sum += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (bin[r] != kBins) {
+      order[count[bin[r]] + rank[r]] = (uint16_t)(r * kThreads + t);
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace dtx

@@ -196,7 +196,9 @@ def decode_bptc_plain(words: torch.Tensor, mode_mask: int = _FULL,
 
     # --- subsets and index streams ----------------------------------------
     # Each anchor pixel stores one bit less, so the offset of pixel i in a
-    # stream is width*i minus the anchors before i.
+    # stream is width*i minus the anchor pixels before i.  An anchor counts
+    # once per pixel: pre-gathered anchors may be pixel 0 or equal, as in
+    # tools/mxu_probe.py:_bc7_kernel_pre (its anchor bitmask).
     i16 = torch.arange(16, dtype=torch.int32, device=words.device)[None, :]
     if pre is None:
         subset = t["subset"][ns.long() - 1, psid.long()]       # (N, 16)
@@ -209,20 +211,20 @@ def decode_bptc_plain(words: torch.Tensor, mode_mask: int = _FULL,
         pos = pre[:, 1]
         a2 = torch.where(ns == 2, pos & 0xF, (pos >> 4) & 0xF)[:, None]
         a3 = ((pos >> 8) & 0xF)[:, None]
-    has2 = (ns >= 2)[:, None]
-    has3 = (ns == 3)[:, None]
+    has2 = (ns >= 2)[:, None] & (a2 != 0)
+    has3 = (ns == 3)[:, None] & (a3 != 0) & (a3 != a2)
     is_anchor = (i16 == 0) | (has2 & (i16 == a2)) | (has3 & (i16 == a3))
     before = ((i16 > 0).int() + (has2 & (a2 < i16)).int()
               + (has3 & (a3 < i16)).int())
+    # Bits past 127 read 0: with fewer distinct anchors a stream runs past
+    # the block, and a stream of width 0 (no second stream) starts at 128.
+    padded = torch.cat([words, torch.zeros_like(words[:, :1])], 1)
 
     def stream(start, width):
-        # Streams of width 0 (no second stream) may start at bit 128; their
-        # mask is 0, so clamping the offset changes nothing.
-        off = torch.clamp(start[:, None] + width[:, None] * i16 - before,
-                          max=127)
+        off = start[:, None] + width[:, None] * i16 - before
         full = (1 << width)[:, None] - 1
         anch = (1 << torch.clamp(width - 1, min=0))[:, None] - 1
-        return dyn_field(words, off, 4) & torch.where(is_anchor, anch, full)
+        return dyn_field(padded, off, 4) & torch.where(is_anchor, anch, full)
 
     ib, ib2 = g("ib"), g("ib2")
     prim = stream(g("index_start"), ib)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from detex_tpu_torch.ops import bitops, bptc
 
 _REPO = Path(__file__).resolve().parent.parent
@@ -256,6 +257,49 @@ def test_host_kernel_goldens(host_kernel):
     _check_golden(host_kernel, np.load(_GOLDEN))
 
 
+def _mode_forced(mode, n=256, seed=21):
+    """n random blocks forced to `mode` (byte 0's lowest set bit), or with
+    byte 0 == 0 for mode 8 (no mode: decoded as mode 0, invalid)."""
+    b = np.random.default_rng(seed + mode).integers(0, 256, (n, 16), np.uint8)
+    b[:, 0] = 0 if mode == 8 else \
+        (b[:, 0] | (1 << mode)) & (0xFF ^ ((1 << mode) - 1))
+    return b
+
+
+@pytest.mark.parametrize("mode_mask,flags", [
+    (_FULL, 0), (0x55, 2), (0xAA, 4), (0, 0)])
+@pytest.mark.parametrize("mode", range(9),
+                         ids=[f"mode{m}" for m in range(8)] + ["no_mode"])
+def test_host_kernel_per_mode(jx, host_kernel, mode, mode_mask, flags):
+    """Each bc7_decode_mode<M> instantiation of bc7.cuh (and byte0 == 0,
+    which the dispatcher sends to mode 0) against the plain version and
+    the JAX package's jnp decoder, tolerance 0."""
+    blocks = _mode_forced(mode)
+    p1, v1 = host_kernel(blocks, mode_mask, flags)
+    for p0, v0 in (_twin(blocks, mode_mask, flags),
+                   jx.fast(_words_np(blocks), np.uint32(mode_mask & _FULL),
+                           np.uint32(flags))):
+        np.testing.assert_array_equal(np.asarray(v0), v1)
+        np.testing.assert_array_equal(np.asarray(p0), p1)
+    assert v1.any() == (mode < 8 and bool((mode_mask >> mode) & 1)
+                        and not (flags & 2 and mode >= 4)
+                        and not (flags & 4 and mode < 4))
+
+
+def test_tile_sizes_match_sources():
+    """The tile sizes the card's tests and chip_smoke use for edge cases are
+    the kernels' own: 128 threads x kRounds blocks in bc7.cu, bc7_pre.cu
+    and bc6h.cu."""
+    hd = (_CSRC / "dtx_hd.cuh").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", hd).group(1))
+    for name, tile in (("bc7.cu", chip_smoke._BC7_TILE),
+                       ("bc7_pre.cu", chip_smoke._BC7_TILE),
+                       ("bc6h.cu", chip_smoke._BC6H_TILE)):
+        rounds = int(re.search(r"constexpr int kRounds = (\d+);",
+                               (_CSRC / name).read_text()).group(1))
+        assert threads * rounds == tile, name
+
+
 # --- the CUDA kernel (on a card only) --------------------------------------
 
 
@@ -300,6 +344,50 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         bptc.decode_bptc(torch.zeros((4, 8), dtype=torch.int32,
                                      device=cuda).T)
+    before = bptc.KERNEL_LAUNCHES
+    pix, valid = bptc.decode_bptc(torch.zeros((0, 4), dtype=torch.int32,
+                                              device=cuda))
+    assert pix.shape == (0, 16) and valid.shape == (0,)
+    assert bptc.KERNEL_LAUNCHES == before          # N = 0 launches nothing
+
+
+_T = chip_smoke._BC7_TILE
+
+
+def _mixed_words(n, seed=5):
+    return _torch_words(chip_smoke.MP.tool_blocks(n, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 256, 3 * _T + 5])
+def test_cuda_kernel_edge_sizes(cuda, n):
+    """Whole tiles, a ragged last tile and N below one tile."""
+    words = _mixed_words(n).to(cuda)
+    for mm, fl in ((_FULL, 0), (0x55, 2), (0xAA, 4)):
+        p0, v0 = bptc.decode_bptc_plain(words, mm, fl)
+        p1, v1 = bptc.decode_bptc(words, mm, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), (n, mm, fl)
+
+
+def _bc7_batches():
+    blocks = chip_smoke.MP.tool_blocks(3 * _T + 5, 6)
+    return chip_smoke._mode_batches(
+        blocks, chip_smoke._BC7_MODE[blocks[:, 0]],
+        [(1 << m, m + 1) for m in range(8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["mixed", "sorted"]
+                         + [f"mode{m}" for m in range(8)])
+def test_cuda_kernel_mode_batches(cuda, batch):
+    """Modes mixed, sorted, and one mode per batch (every warp of one
+    mode)."""
+    words = _torch_words(_bc7_batches()[batch]).to(cuda)
+    p0, v0 = bptc.decode_bptc_plain(words)
+    p1, v1 = bptc.decode_bptc(words)
+    torch.cuda.synchronize()
+    assert torch.equal(v0, v1) and torch.equal(p0, p1)
 
 
 # --- the package imports no jax and nothing of detex_tpu ----------------------

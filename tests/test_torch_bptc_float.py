@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import bc6h_mode_blocks
 from detex_tpu_torch.ops import bitops, bptc_float
 
@@ -390,5 +391,45 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
         fn(torch.zeros((4, 8), dtype=torch.int32, device=cuda).T)
     with pytest.raises(ValueError):                 # alignment
         fn(torch.zeros((37,), dtype=torch.int32, device=cuda)[1:].view(9, 4))
+    before = dict(bptc_float.KERNEL_LAUNCHES)
     pix, valid = fn(torch.zeros((0, 4), dtype=torch.int32, device=cuda))
     assert pix.shape == (0, 32) and valid.shape == (0,)
+    assert bptc_float.KERNEL_LAUNCHES == before     # N = 0 launches nothing
+
+
+_T = chip_smoke._BC6H_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 256, 3 * _T + 5])
+@pytest.mark.parametrize("variant", _NAMES)
+def test_cuda_kernel_edge_sizes(cuda, variant, n):
+    """Whole tiles, a ragged last tile and N below one tile."""
+    blocks = bc6h_mode_blocks(n, np.random.default_rng(17))
+    words = torch.from_numpy(_words(blocks)).to(cuda)
+    for mm, fl in _SETTINGS[:3]:
+        p0, v0 = _plain(variant)(words, mm, fl)
+        p1, v1 = _wrapper(variant)(words, mm, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), (n, mm, fl)
+
+
+def _bc6h_batches():
+    """Mixed and sorted mode codes, then one batch per code: the 14 modes
+    (mode0-mode13) and the 4 reserved codes (mode14-mode17)."""
+    blocks = bc6h_mode_blocks(3 * _T + 5, np.random.default_rng(19))
+    return chip_smoke._mode_batches(blocks, chip_smoke._bc6h_code_key(blocks),
+                                    chip_smoke._BC6H_CODES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["mixed", "sorted"]
+                         + [f"mode{m}" for m in range(18)])
+@pytest.mark.parametrize("variant", _NAMES)
+def test_cuda_kernel_mode_batches(cuda, variant, batch):
+    words = torch.from_numpy(_words(_bc6h_batches()[batch])).to(cuda)
+    p0, v0 = _plain(variant)(words)
+    p1, v1 = _wrapper(variant)(words)
+    torch.cuda.synchronize()
+    assert torch.equal(v0, v1) and torch.equal(p0, p1)
+    assert v1.any() == (batch in ("mixed", "sorted") or int(batch[4:]) < 14)

@@ -93,19 +93,18 @@ def _words(blocks):
     return np.ascontiguousarray(blocks).view(np.int32).copy()
 
 
-@functools.cache
-def _jax_bc7_pre(mode_mask, flags):
+def _jax_bc7_pre_on(words, pre, mode_mask, flags):
     """tools/mxu_probe.py:_bc7_kernel_pre in decode_mxu's pallas_call (its
-    BlockSpecs, tile 128, interpret=True) with its own pregather, on
-    _bc7_blocks(): ((N, 16) pixels, (N,) valid)."""
+    BlockSpecs, tile 128, interpret=True) on (N, 4) words and (N, 2)
+    pre-gathered words, N a multiple of 1024: ((N, 16) pixels, (N,)
+    valid)."""
     t = _load_tool("mxu_probe")
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
-    wp = jnp.asarray(_words(_bc7_blocks()).T.copy())
-    pre = t.pregather(wp)
-    ell = _N // 8
+    n = len(words)
+    ell = n // 8
     scal = jnp.asarray(np.array([mode_mask, flags], np.uint32)
                        .view(np.int32))
     pix, valid = pl.pallas_call(
@@ -122,9 +121,20 @@ def _jax_bc7_pre(mode_mask, flags):
         out_shape=[jax.ShapeDtypeStruct((16, 8, ell), jnp.int32),
                    jax.ShapeDtypeStruct((8, ell), jnp.int32)],
         interpret=True,
-    )(scal, wp.reshape(4, 8, ell), pre.reshape(2, 8, ell))
-    return (np.asarray(pix).reshape(16, _N).T,
-            np.asarray(valid).reshape(_N) != 0)
+    )(scal, jnp.asarray(words.T.reshape(4, 8, ell)),
+      jnp.asarray(pre.T.reshape(2, 8, ell)))
+    return (np.asarray(pix).reshape(16, n).T,
+            np.asarray(valid).reshape(n) != 0)
+
+
+@functools.cache
+def _jax_bc7_pre(mode_mask, flags):
+    """_jax_bc7_pre_on(_bc7_blocks()) with the tool's own pregather."""
+    import jax.numpy as jnp
+    words = _words(_bc7_blocks())
+    pre = np.asarray(_load_tool("mxu_probe").pregather(
+        jnp.asarray(words.T.copy()))).T
+    return _jax_bc7_pre_on(words, pre, mode_mask, flags)
 
 
 @pytest.fixture(scope="module")
@@ -175,6 +185,56 @@ def test_bc7_pre_host_kernel_vs_jax_interpret(jt, bc7_host, mode_mask,
     want_pix, want_valid = _jax_bc7_pre(mode_mask, flags)
     np.testing.assert_array_equal(valid, want_valid)
     np.testing.assert_array_equal(pix, want_pix)
+
+
+def _any_pre(blocks, anchors):
+    """(N, 2) pre-gathered words that no table gives: random subset words
+    (each pixel in one of its mode's subsets) with random anchors, or with
+    degenerate ones: the anchor at pixel 0, or (three subsets) both at
+    pixel 0, one at 0, both equal, and both at pixel 15, where pixel 15's
+    index would run past bit 127."""
+    rng = np.random.default_rng(31)
+    b0 = blocks[:, 0].astype(np.int64)
+    mode = np.where(b0 == 0, 0, np.log2(np.maximum(b0 & -b0, 1)).astype(int))
+    ns = np.array([3, 2, 3, 2, 1, 1, 1, 2])[mode]
+    sub = (rng.integers(0, 3, (len(blocks), 16)) % ns[:, None]) \
+        << (2 * np.arange(16))
+    pos = rng.integers(0, 0x1000, len(blocks))
+    if anchors == "degenerate":
+        # a0 (two subsets) = pos & 0xF; a1, a2 (three) = pos >> 4 & 0xF,
+        # pos >> 8.  Each keeps a0 = 0.
+        a = rng.integers(0, 16, len(blocks))
+        kind = rng.integers(0, 4, len(blocks))
+        pos = np.choose(kind, [a << 4, a << 8, a * 0x110,
+                               np.full_like(a, 0xFF0)])
+    return np.stack([sub.sum(1), pos], 1).astype(np.uint32).view(np.int32)
+
+
+@functools.cache
+def _jax_bc7_any_pre(anchors, mode_mask, flags):
+    blocks = _bc7_blocks()
+    return _jax_bc7_pre_on(_words(blocks), _any_pre(blocks, anchors),
+                           mode_mask, flags)
+
+
+@pytest.mark.parametrize("mode_mask,flags", _SETTINGS)
+@pytest.mark.parametrize("anchors", ["random", "degenerate"])
+def test_bc7_pre_host_kernel_any_words(jt, bc7_host, anchors, mode_mask,
+                                       flags):
+    """Pre-gathered words that no table gives (_any_pre), through the host
+    build of the kernel's decode (whose pixel-by-pixel stream serves the
+    anchors its bit insertion cannot express) and the plain version,
+    against the JAX tool's kernel in interpret mode, tolerance 0."""
+    blocks = _bc7_blocks()
+    words, pre = _words(blocks), _any_pre(blocks, anchors)
+    want_pix, want_valid = _jax_bc7_any_pre(anchors, mode_mask, flags)
+    pix, valid = bc7_host(words, pre, mode_mask, flags)
+    np.testing.assert_array_equal(valid, want_valid)
+    np.testing.assert_array_equal(pix, want_pix)
+    pix, valid = MP.decode_bc7_pre_plain(
+        torch.from_numpy(words), torch.from_numpy(pre), mode_mask, flags)
+    np.testing.assert_array_equal(valid.numpy(), want_valid)
+    np.testing.assert_array_equal(pix.numpy(), want_pix)
 
 
 @pytest.mark.parametrize("mode_mask,flags", _SETTINGS)
@@ -412,6 +472,19 @@ def test_cuda_bc7_pre_vs_plain(cuda, mode_mask, flags):
     assert MP.KERNEL_LAUNCHES["bc7_pre_decode"] == before + 1
     np.testing.assert_array_equal(
         pre.cpu().numpy(), MP.pregather(words.cpu()).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anchors", ["random", "degenerate"])
+def test_cuda_bc7_pre_any_words_vs_plain(cuda, anchors):
+    blocks = _bc7_blocks()
+    words = torch.from_numpy(_words(blocks)).to(cuda)
+    pre = torch.from_numpy(_any_pre(blocks, anchors)).to(cuda)
+    for mode_mask, flags in _SETTINGS:
+        p0, v0 = MP.decode_bc7_pre_plain(words, pre, mode_mask, flags)
+        p1, v1 = MP.decode_bc7_pre(words, pre, mode_mask, flags)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1)
 
 
 @pytest.mark.cuda
