@@ -24,7 +24,8 @@ all at once) and drives the port's three paths:
     convert (BC6H to half float, 16-bit, 8-bit and HDR targets, RGTC1 and
     ETC2_EAC to other formats) also byte-equal to the torch backend, which
     converts on the host; every kernel timed against its plain version,
-    and stage breakdowns of the texture calls;
+    its device time per launch read by CUDA events (torch.profiler's
+    reading beside it), and stage breakdowns of the texture calls;
   * the tools (detex_tpu_torch/tools/): the BC7 pre-gathered-partition,
     lane-interleave and ALU mix-probe kernels held bit-exact against their
     plain versions at the tools' 65,536 blocks (bc7_pre also against the
@@ -32,10 +33,13 @@ all at once) and drives the port's three paths:
     interleave) the PyTorch call that computes the same function, then
     each tool's main() run once;
   * "mode batches", last, so that it cannot move the device times read
-    before it: the BC7 and BC6H kernels' device time on blocks of mixed
-    modes, the same blocks sorted by mode and one-mode batches, and the
-    profiler's reading of each kernel on the mixed batch before and after
-    those rounds.
+    before it: the device time of the tile kernels (BC7, BC6H, the ETC
+    colour kernel for ETC1/ETC2/punchthrough, BC2/BC3) on blocks of mixed
+    modes, the same blocks sorted by mode and one-mode batches (ETC: the
+    texture path's blocks, their row-shuffled copy, sorted, one-mode;
+    BC2/BC3: the texture path's blocks), each kernel held to its plain
+    version there and at its tile's edge sizes, and the profiler's reading
+    of each kernel before and after those rounds.
 
 Every kernel's time is printed beside its bound: the larger of its bytes
 over HBM's rate and, for a kernel without a conditional branch, its
@@ -382,6 +386,22 @@ def _time_ms(fn, reps: int = 21, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, inner: int = 20) -> float:
+    """Device time per call of fn(), by CUDA events around `inner`
+    back-to-back calls enqueued behind a spin kernel: the launches queue up
+    while it runs, so host enqueue time falls outside the events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)        # about 2 ms at 1.98 GHz
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
 def _kernel_phase(rng) -> dict:
     err = _check_golden()
     blocks = _test_blocks(rng)
@@ -517,6 +537,33 @@ def _overflow_bytes():
     return b[ovf].astype(np.uint8), b[~ovf].astype(np.uint8)
 
 
+# Whether each value of an ETC colour byte overflows (_overflow_bytes).
+_ETC_OVERFLOWS = np.isin(np.arange(256), _overflow_bytes()[0])
+
+
+def _force_etc_mode(b: np.ndarray, rows: np.ndarray, c: int, mode: int,
+                    rng) -> None:
+    """Draws the colour bytes (at byte c) of `rows` so that a differential
+    ETC2 block decodes in `mode` 1-4: the first overflowing channel R, G, B
+    makes mode 2, 3, 4; none, 1."""
+    ovf, ok = _overflow_bytes()
+    for ch in range(3 if mode == 1 else mode - 1):
+        vals = ovf if ch == mode - 2 else ok
+        b[rows, c + ch] = rng.choice(vals, len(rows))
+
+
+def etc_mode_key(variant: str, blocks: np.ndarray) -> np.ndarray:
+    """Each ETC colour block's mode, as csrc/etc_eac.cuh:etc_mode gives it:
+    0 individual, 1 differential, 2 T, 3 H, 4 planar (ETC1: 0 or 1;
+    punchthrough's differential bit is its opacity, so never 0)."""
+    diff = (blocks[:, 3] & 2) != 0
+    if variant == "etc1":
+        return diff.astype(np.int64)
+    r, g, b = (_ETC_OVERFLOWS[blocks[:, c]] for c in range(3))
+    mode = np.where(r, 2, np.where(g, 3, np.where(b, 4, 1)))
+    return mode if variant == "etc2_punchthrough" else np.where(diff, mode, 0)
+
+
 def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     """n random blocks of an ETC/EAC variant, with eighths forced into the
     branches random bytes rarely reach (T, H and planar each come up in
@@ -535,23 +582,15 @@ def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     wide = variant in ("etc2_eac", "eac_rg11", "eac_signed_rg11")
     b = rng.integers(0, 256, (n, 16 if wide else 8), np.uint8)
     e = [np.arange(k * n // 8, (k + 1) * n // 8) for k in range(8)]
-    ovf, ok = _overflow_bytes()
-
-    def force_mode(rows, c, mode):
-        # The first overflowing channel R, G, B makes mode 2, 3, 4; none, 1.
-        for ch in range(3 if mode == 1 else mode - 1):
-            vals = ovf if ch == mode - 2 else ok
-            b[rows, c + ch] = rng.choice(vals, len(rows))
-
     if variant.startswith("etc"):
         c = 8 if variant == "etc2_eac" else 0
         b[e[1], c + 3] &= 0xFD
         for k, mode in ((2, 1), (3, 2), (4, 3), (5, 4)):
             b[e[k], c + 3] |= 2
-            force_mode(e[k], c, mode)
+            _force_etc_mode(b, e[k], c, mode, rng)
         b[e[6], c + 3] &= 0xFD
         for rows, mode in zip(np.array_split(e[6], 3), (2, 3, 4)):
-            force_mode(rows, c, mode)
+            _force_etc_mode(b, rows, c, mode, rng)
         # H with the second base colour equal to the first
         # (decompress-etc.c:253-260): copy its 4-bit R, G, B into the
         # fields of the second.
@@ -884,22 +923,32 @@ def _bc_timing(blocks: dict) -> dict:
     return times
 
 
-def _device_us(blocks: dict) -> dict:
-    """Device time per launch of each variant's kernel at N = 1,048,576,
-    from torch.profiler's CUDA activity over 10 launches (None where the
-    profiler records no kernel)."""
+def _device_us(blocks: dict, smi: str) -> dict:
+    """Device time per launch of each variant's kernel at N = 1,048,576:
+    {variant: (CUDA events, torch.profiler)}.  The events (_device_ms,
+    median of 5 windows of 20 launches) are the reading; torch.profiler's
+    median per launch record over 10 launches (None where it records no
+    kernel) is printed beside them, flagged where the two differ by more
+    than 3%."""
     out = {}
     for variant, b in blocks.items():
         words, fn = _words(b), _wrapper(variant)
         kernel = _VARIANTS[variant][0].replace("_decode", "_kernel")
-        out[variant] = _profile_us(lambda: fn(words), kernel + "<",
-                                   kernel + "(")
+        events = 1e3 * statistics.median(
+            _device_ms(lambda: fn(words)) for _ in range(5))
+        prof = _profile_us(lambda: fn(words), kernel + "<", kernel + "(")
+        out[variant] = (events, prof)
         out_words = fn(words[:1])[0].shape[1]
         moved = _N_BIG * (4 * words.shape[1] + 4 * out_words + 1)
-        print(f"device: {variant} N={_N_BIG}: " + (
-            "not measured (no kernel in the profile)" if out[variant] is None
-            else f"{out[variant]:.2f} us per launch, "
-                 f"{moved / out[variant] / 1e6:.3f} TB/s moved"))
+        if prof is None:
+            second = "not measured (no kernel in the profile)"
+        else:
+            off = prof / events - 1
+            second = f"{prof:.2f} us ({off:+.1%}" + (
+                ", off by more than 3%)" if abs(off) > 0.03 else ")")
+        print(f"device: {variant} N={_N_BIG}: {events:.2f} us per launch by "
+              f"CUDA events, {moved / events / 1e6:.3f} TB/s moved; "
+              f"torch.profiler {second} on {smi}")
     return out
 
 
@@ -1038,8 +1087,11 @@ def _bptc_texture(smi: str) -> int:
 # none and decodes as mode 0).
 _BC7_MODE = np.array([0 if b == 0 else (b & -b).bit_length() - 1
                       for b in range(256)])
-# bc7.cu's tile: 128 threads x 2 blocks; bc6h.cu's: 128 blocks.
-_BC7_TILE, _BC6H_TILE = 256, 128
+# Tiles, 128 threads x kRounds blocks: bc7.cu's 256; bc6h.cu's, etc_eac.cu's
+# (etc_kernel) and bc.cu's (bc23_kernel) 128.
+_BC7_TILE, _BC6H_TILE, _ETC_TILE, _BC23_TILE = 256, 128, 128, 128
+
+
 def _mode_batches(blocks: np.ndarray, key: np.ndarray, codes) -> dict:
     """The blocks (modes mixed), the same blocks sorted by their mode key,
     and one batch per (code, width) that keeps the blocks' bits but sets
@@ -1053,71 +1105,102 @@ def _mode_batches(blocks: np.ndarray, key: np.ndarray, codes) -> dict:
     return batches
 
 
-def _device_ms(fn, inner: int = 20) -> float:
-    """Device time per call of fn(), by CUDA events around `inner`
-    back-to-back calls enqueued behind a spin kernel: the launches queue up
-    while it runs, so host enqueue time falls outside the events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(4_000_000)        # about 2 ms at 1.98 GHz
-    start.record()
-    for _ in range(inner):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / inner
+# The modes of each ETC colour variant's one-mode batches.
+_ETC_MODES = {"etc1": (0, 1), "etc2": (0, 1, 2, 3, 4),
+              "etc2_punchthrough": (1, 2, 3, 4)}
 
 
-def _mode_batch_timing(smi: str, rounds: int = 11) -> dict:
-    """Mode divergence, measured: device time per call (_device_ms) of the
-    BC7 kernel on 1,048,576 of the tool's blocks (modes uniform over 0-7),
-    on the same blocks sorted by mode and on 8 batches that keep those
-    bits but force one mode; and of the BC6H kernel (both signs) on
-    1,048,576 blocks drawn as the texture path draws them (mode codes
-    uniform over the 14 modes and the 4 reserved codes), sorted, and forced
-    to each of the 14 modes.  Each round times every (kernel, batch) once
-    in a fresh random order, so clock and power drift fall on all alike;
-    the result is the median over the rounds.  Every batch's output is
-    first held bit-exact to the plain version, and each kernel at the edge
-    sizes of its tile.  torch.profiler reads each kernel on the mixed batch
-    before and after the rounds, with the launch records it kept: the two
-    methods side by side, and whether the rounds move a later reading.
-    Returns {(kernel, batch): ms}."""
+def etc_mode_batches(variant: str, blocks: np.ndarray, rng) -> dict:
+    """An ETC colour variant's blocks as the texture path draws them
+    (etc_branch_blocks: forced eighths in contiguous row ranges, so most
+    warps see one mode), their row-shuffled copy (modes mixed in every
+    warp), that copy sorted by mode, and one batch per mode that keeps the
+    blocks' other bits (ETC1 and ETC2 through the differential bit,
+    ETC2 and punchthrough modes 1-4 through the colour bytes; punchthrough
+    keeps its opacity bits)."""
+    mixed = blocks[rng.permutation(len(blocks))]
+    batches = {"texture": blocks, "mixed": mixed,
+               "sorted": mixed[np.argsort(etc_mode_key(variant, mixed),
+                                          kind="stable")]}
+    for m in _ETC_MODES[variant]:
+        b = blocks.copy()
+        if variant != "etc2_punchthrough":
+            b[:, 3] = (b[:, 3] & 0xFD) | (2 if m else 0)
+        if variant != "etc1" and m:
+            _force_etc_mode(b, np.arange(len(b)), 0, m, rng)
+        if not (etc_mode_key(variant, b) == m).all():
+            raise AssertionError(f"{variant} mode{m} batch has other modes")
+        batches[f"mode{m}"] = b
+    return batches
+
+
+def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
+    """Mode divergence and the tile kernels, measured: device time per call
+    (_device_ms) of the BC7 kernel on 1,048,576 of the tool's blocks (modes
+    uniform over 0-7), on the same blocks sorted by mode and on 8 batches
+    that keep those bits but force one mode; of the BC6H kernel (both
+    signs) on 1,048,576 blocks drawn as the texture path draws them (mode
+    codes uniform over the 14 modes and the 4 reserved codes), sorted, and
+    forced to each of the 14 modes; of the ETC colour kernel (etc1, etc2,
+    punchthrough) on the texture path's blocks (`tex_blocks`), their
+    row-shuffled copy, that sorted and one batch per mode
+    (etc_mode_batches); and of the BC2/BC3 kernel on the texture path's
+    blocks.  Each round times every (kernel, batch) once in a fresh random
+    order, so clock and power drift fall on all alike; the result is the
+    median over the rounds.  Every batch's output is first held bit-exact
+    to the plain version, and each kernel at the edge sizes of its tile.
+    torch.profiler reads each kernel on its first batch before and after
+    the rounds, with the launch records it kept: the two methods side by
+    side, and whether the rounds move a later reading.  Each kernel's line
+    ends with its share of its byte bound on its first batch.  Returns
+    {(kernel, batch): ms}."""
     rng = np.random.default_rng(_SEED)
     bc7_blocks = MP.tool_blocks(_N_BIG)
     bc6h_blocks = bc6h_mode_blocks(_N_BIG, rng)
-    batches = {
-        "bc7": _mode_batches(bc7_blocks, _BC7_MODE[bc7_blocks[:, 0]],
-                             [(1 << m, m + 1) for m in range(8)]),
-        "bc6h": _mode_batches(bc6h_blocks, _bc6h_code_key(bc6h_blocks),
-                              _BC6H_CODES[:14])}
-    words = {(fam, k): _words(b) for fam, bs in batches.items()
+    # family -> (batches, the first the reference; tile; bytes per block)
+    fams = {
+        "bc7": (_mode_batches(bc7_blocks, _BC7_MODE[bc7_blocks[:, 0]],
+                              [(1 << m, m + 1) for m in range(8)]),
+                _BC7_TILE, 16 + 64 + 1),
+        "bc6h": (_mode_batches(bc6h_blocks, _bc6h_code_key(bc6h_blocks),
+                               _BC6H_CODES[:14]), _BC6H_TILE, 16 + 128 + 1),
+        **{v: (etc_mode_batches(v, tex_blocks[v], rng), _ETC_TILE, 8 + 64 + 1)
+           for v in _ETC_MODES},
+        **{v: ({"texture": tex_blocks[v]}, _BC23_TILE, 16 + 64 + 1)
+           for v in ("bc2", "bc3")}}
+    words = {(fam, k): _words(b) for fam, (bs, _, _) in fams.items()
              for k, b in bs.items()}
     fns = {"bc7_kernel": ("bc7", bptc.decode_bptc, bptc.decode_bptc_plain),
            "bc6h_kernel<0>": ("bc6h", bptc_float.decode_bptc_float,
                               bptc_float.decode_bptc_float_plain),
            "bc6h_kernel<1>": ("bc6h", bptc_float.decode_bptc_signed_float,
-                              bptc_float.decode_bptc_signed_float_plain)}
+                              bptc_float.decode_bptc_signed_float_plain),
+           **{f"{_VARIANTS[v][0].replace('_decode', '_kernel')}"
+              f"<{_TEMPLATE_ARG[v]}>": (v, _wrapper(v), _plain(v))
+              for v in ("etc1", "etc2", "etc2_punchthrough", "bc2", "bc3")}}
+    first = {fam: next(iter(bs)) for fam, (bs, _, _) in fams.items()}
     for name, (fam, fn, plain) in fns.items():
-        for k in batches[fam]:
+        batches, tile, _ = fams[fam]
+        for k in batches:
             _compare(words[(fam, k)], _FULL, 0, fn, plain, f"{name} {k}")
-        tile = _BC7_TILE if fam == "bc7" else _BC6H_TILE
+        edge = "mixed" if "mixed" in batches else first[fam]
         for n in (1, tile - 1, tile, tile + 1, 256, 3 * tile + 5):
             for mm, fl in ((_FULL, 0), (0x55, 2)):
-                _compare(words[(fam, "mixed")][:n].contiguous(), mm, fl, fn,
+                _compare(words[(fam, edge)][:n].contiguous(), mm, fl, fn,
                          plain, f"{name} N={n}")
     torch.cuda.synchronize()
-    print(f"bits: bc7_kernel and bc6h_kernel<0>/<1> bit-exact (tolerance 0) "
-          f"vs their plain versions on every mode batch and at N = 1, T - 1, "
-          f"T, T + 1, 256, 3T + 5 (T = {_BC7_TILE} / {_BC6H_TILE})")
+    print(f"bits: {', '.join(fns)} bit-exact (tolerance 0) vs their plain "
+          f"versions on every batch and at N = 1, T - 1, T, T + 1, 256, "
+          f"3T + 5 (T = {_BC7_TILE} for BC7, {_BC6H_TILE} for BC6H, "
+          f"{_ETC_TILE} for ETC, {_BC23_TILE} for BC2/BC3) under (mode_mask, "
+          f"flags) (0x{_FULL:x}, 0) and (0x55, 2)")
 
     def profiled():
         """{kernel: (launch records of 10 calls, their min, median and
         max us)}."""
         out = {}
         for name, (fam, fn, _) in fns.items():
-            d = sum(_profile(lambda: fn(words[(fam, "mixed")]),
+            d = sum(_profile(lambda: fn(words[(fam, first[fam])]),
                              (name.split("<")[0],), 10).values(), [])
             out[name] = (len(d), min(d), statistics.median(d), max(d)) \
                 if d else (0, math.nan, math.nan, math.nan)
@@ -1125,7 +1208,7 @@ def _mode_batch_timing(smi: str, rounds: int = 11) -> dict:
 
     before = profiled()
     jobs = [(name, fam, fn, k) for name, (fam, fn, _) in fns.items()
-            for k in batches[fam]]
+            for k in fams[fam][0]]
     order = np.random.default_rng(_SEED)
     ms = {(name, k): [] for name, _, _, k in jobs}
     for _ in range(rounds):
@@ -1135,20 +1218,25 @@ def _mode_batch_timing(smi: str, rounds: int = 11) -> dict:
             ms[(name, k)].append(_device_ms(lambda: fn(w)))
     out = {key: statistics.median(v) for key, v in ms.items()}
     after = profiled()
-    for name in fns:
+    for name, (fam, _, _) in fns.items():
         ks = [k for n, k in out if n == name]
         single = [k for k in ks if k.startswith("mode")]
         line = ", ".join(f"{k} {out[(name, k)] * 1e3:.2f} (rounds "
                          f"{min(ms[(name, k)]) * 1e3:.2f}-"
                          f"{max(ms[(name, k)]) * 1e3:.2f})"
-                         for k in ks if k in ("mixed", "sorted"))
+                         for k in ks if not k.startswith("mode"))
         if single:
             line += (", single modes " + ", ".join(
                 f"{k[4:]} {out[(name, k)] * 1e3:.2f}" for k in single))
+        bound_us = _N_BIG * fams[fam][2] / _HBM_BYTES_PER_S * 1e6
+        share = bound_us / (out[(name, first[fam])] * 1e3)
         print(f"mode batches: {name} N={_N_BIG}, device us per call, median "
-              f"of {rounds} shuffled rounds: {line} on {smi}")
-        print(f"mode batches: {name} N={_N_BIG} mixed, torch.profiler over "
-              f"10 calls, launch records and their min / median / max us: "
+              f"of {rounds} shuffled rounds: {line}; {first[fam]} at "
+              f"{share:.0%} of its {bound_us:.1f} us byte bound "
+              f"({fams[fam][2]} B per block) on {smi}")
+        print(f"mode batches: {name} N={_N_BIG} {first[fam]}, torch.profiler "
+              f"over 10 calls, launch records and their min / median / max "
+              f"us: "
               + "; ".join(f"{when} the rounds {r[0]}, {r[1]:.2f} / "
                           f"{r[2]:.2f} / {r[3]:.2f}"
                           for when, r in (("before", before[name]),
@@ -1187,7 +1275,8 @@ def _variant_bound(variant: str, n: int, sass: dict):
 
 def _texture_phase(rng, smi: str, sass: dict):
     """Goldens, kernel vs plain at N = 1,048,576, the texture path, the
-    CLI and the timings.  Returns the kernels' JSON entries."""
+    CLI and the timings.  Returns the kernels' JSON entries and each
+    variant's blocks."""
     errs = _phase("texture goldens", _bc_golden_phase)
     blocks = _phase("texture blocks", lambda: {
         v: _blocks(v, _N_BIG, rng) for v in _VARIANTS})
@@ -1198,7 +1287,7 @@ def _texture_phase(rng, smi: str, sass: dict):
     _phase("cli", _cli_path, blocks)
     _phase("texture breakdown", _texture_breakdown, blocks, smi)
     times = _phase("texture timing", _bc_timing, blocks)
-    device_us = _phase("texture device time", _device_us, blocks)
+    device_us = _phase("texture device time", _device_us, blocks, smi)
     bounds = {v: _variant_bound(v, _N_BIG, sass) for v in _VARIANTS}
     entries = []
     for kernel, (source, replaces) in _REPLACES.items():
@@ -1218,10 +1307,11 @@ def _texture_phase(rng, smi: str, sass: dict):
                 "ms": times[(v, _N_BIG)][0],
                 "plain_ms": times[(v, _N_BIG)][1],
                 "bound_ms": bounds[v][0], "bound_by": bounds[v][1],
-                "device_us": device_us[v],
+                "device_us": device_us[v][0],
+                "device_us_profiler": device_us[v][1],
                 "ms_n4096": times[(v, 4096)][0],
                 "plain_ms_n4096": times[(v, 4096)][1]} for v in variants}})
-    return entries
+    return entries, blocks
 
 
 # --- the tools: the BC7 pre-gathered probe, lane interleave, ALU mix ------
@@ -1430,12 +1520,12 @@ def main() -> None:
     rng = np.random.default_rng(_SEED)
     timing = _phase("bc7 kernel", _kernel_phase, rng)
     launches = _phase("control step", _main_path, rng, smi)
-    texture_kernels = _texture_phase(rng, smi, sass)
+    texture_kernels, tex_blocks = _texture_phase(rng, smi, sass)
     tool_kernels = _tools_phase(smi, sass)
     _phase("bptc texture", _bptc_texture, smi)
     # Last: its rounds of back-to-back launches are not to move the device
     # times read before it.
-    _phase("mode batches", _mode_batch_timing, smi)
+    _phase("mode batches", _mode_batch_timing, smi, tex_blocks)
     print(f"phase all: {time.perf_counter() - t0:.2f} s")
     bound, by = _bound(256 * (16 + 64 + 1), 256, ("bc7_kernel", None), sass)
     print(json.dumps({"kernels": [{

@@ -15,27 +15,33 @@
 // selects per pixel.
 //
 // What bounds them on this card: these decodes do little integer work per
-// byte, so at large N they should sit near the memory roofline.  Per
-// block, bytes moved (in + out + valid) against integer operations
-// (counted from the source, about):
-//   bc1, bc1a       8 + 64 + 1 B   ~130 ops   memory-bound
-//   bc2            16 + 64 + 1 B   ~150 ops   memory-bound
-//   bc3            16 + 64 + 1 B   ~250 ops   memory-bound
-//   rgtc1           8 + 16 + 1 B   ~130 ops   near the ridge
-//   signed rgtc1    8 + 32 + 1 B   ~190 ops   near the ridge
-//   rgtc2          16 + 32 + 1 B   ~230 ops   near the ridge
-//   signed rgtc2   16 + 64 + 1 B   ~330 ops   near the ridge
-// At 3.35 TB/s and roughly 17 Tops/s of 32-bit integer throughput, the
-// ridge is near 5 operations per byte.  At small N (one texture mip of a
-// few hundred blocks) launch latency dominates.  Measured on an H100 SXM
-// (700 W) at N = 1,048,576: the 64 B-output variants move 1.4-1.6 TB/s,
-// the 16-32 B-output ones 2.4-3.2 TB/s, so the scattered stores below,
-// not the integer work, cap the former.
+// byte, so at large N they sit near the memory roofline.  Per block, bytes
+// moved (in + out + valid) against integer operations (static SASS count
+// per thread):
+//   bc1, bc1a       8 + 64 + 1 B   156, 163
+//   bc2, bc3       16 + 64 + 1 B   229, 309
+//   rgtc1           8 + 16 + 1 B   127
+//   signed rgtc1    8 + 32 + 1 B   298
+//   rgtc2          16 + 32 + 1 B   234
+//   signed rgtc2   16 + 64 + 1 B   609
+// At 3.35 TB/s and 33.4 T thread-instructions/s of issue the ridge is near
+// 10 instructions per byte.  At small N (one texture mip of a few hundred
+// blocks) launch latency dominates.  Measured on an H100 SXM (700 W) at
+// N = 1,048,576: with each thread's output written as 16 B stores at its
+// 16-64 B stride across the warp, the 64 B-output variants move 1.4-2.0
+// TB/s and the 16-32 B-output ones 2.4-2.9 TB/s.
 //
-// Left for later work: a thread's output lies at a 16-64 B stride across
-// the warp, so each vector store fills part of every sector it touches
-// (L2 merges them before DRAM); staging through shared memory would make
-// the stores coalesced.
+// bc23_kernel now: a CUDA block's 128 threads decode a tile of 128
+// consecutive blocks into shared memory (dtx::decode_tile: dtx::TileOut,
+// 64 B rows, XOR swizzle) and store the tile's 8 KB in order, 512
+// contiguous bytes per warp store instruction.  BC2/BC3 have no modes, so
+// no order.  It took bc2 from 53.3 to 31.6 us and bc3 from 61.0 to 31.3 us
+// (80-81% of the 25.4 us byte bound, 2.7 TB/s; CUDA events, chip_smoke.py
+// "mode batches"; H100 SXM, 700 W); a 256-block tile ran 1-1.5 us slower.
+// What bounds it now: DRAM, written at 2.7 TB/s as etc1's tile (2.6) and
+// BC6H's one-mode batches do (the plain-copy interleave kernels reach
+// 2.9).  bc1 and the RGTC kernels still write per thread
+// (dtx::store_words).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,18 +67,17 @@ __global__ void __launch_bounds__(kThreads)
   valid[i] = ok;
 }
 
+constexpr int kRounds = 1;  // blocks per thread of bc23_kernel: a tile of 128
+constexpr int kTile = kThreads * kRounds;
+
 template <bool kBC3>
 __global__ void __launch_bounds__(kThreads)
     bc23_kernel(const uint4* __restrict__ words, long long n, uint32_t flags,
                 uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 w = words[i];
-  uint32_t out[16];
-  const bool ok = dtx::bc23_decode_block<kBC3>(w.x, w.y, w.z, w.w, flags,
-                                               out);
-  store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  dtx::decode_tile<16, kRounds>(
+      words, n, pixels, valid, [&](const uint4& w, uint32_t* out) {
+        return dtx::bc23_decode_block<kBC3>(w.x, w.y, w.z, w.w, flags, out);
+      });
 }
 
 template <bool kSigned>
@@ -131,7 +136,7 @@ extern "C" int dtx_bc23_decode(const void* words, long long n,
   (void)mode_mask;
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = variant ? bc23_kernel<true> : bc23_kernel<false>;
-  kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), n, flags, static_cast<uint4*>(pixels),
       static_cast<bool*>(valid));
   return (int)cudaGetLastError();

@@ -18,7 +18,8 @@
 // instruction touching 32 lines) and took 190-197 us on an H100 SXM (700
 // W), a mode-sorted batch 4% longer.
 //
-// This design: a CUDA block's 128 threads take a tile of 128 consecutive
+// This design (dtx::decode_tile's ordered form, which etc_eac.cu's ETC2
+// kernels share): a CUDA block's 128 threads take a tile of 128 consecutive
 // blocks, order them by mode (dtx::order_rows; a reserved code with mode
 // 0, whose fields it decodes) and decode them in that order into shared
 // memory (dtx::TileOut: 128 B rows, XOR swizzle, 16 KB and 128 B of valid
@@ -54,41 +55,16 @@ __global__ void __launch_bounds__(kThreads)
     bc6h_kernel(const uint4* __restrict__ words, long long n,
                 uint32_t mode_mask, uint4* __restrict__ pixels,
                 bool* __restrict__ valid) {
-  constexpr int kTile = kThreads * kRounds;
-  constexpr uint32_t kModes = 14;
-  __shared__ uint4 s_words[kTile];
-  __shared__ dtx::TileOut<32, kTile> s_out;
-  __shared__ uint16_t s_order[kTile];
-  __shared__ uint32_t s_count[kModes + 1];
-  const long long base = (long long)blockIdx.x * kTile;
-  const int rows = n - base < kTile ? (int)(n - base) : kTile;
-  const int t = threadIdx.x;
-  uint32_t bin[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int e = r * kThreads + t;
-    bin[r] = kModes;
-    if (e < rows) {
-      const uint4 w = words[base + e];
-      s_words[e] = w;
-      const int mode = dtx::bc6h_mode(w.x);
-      bin[r] = mode < 0 ? 0u : (uint32_t)mode;
-    }
-  }
-  dtx::order_rows<kRounds, kModes>(bin, s_count, s_order);
-#pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    const int j = r * kThreads + t;
-    if (j >= rows) break;
-    const int e = s_order[j];
-    const uint4 w = s_words[e];
-    uint32_t out[32];
-    const bool ok =
-        dtx::bc6h_decode_block<kSigned>(w.x, w.y, w.z, w.w, mode_mask, out);
-    s_out.put(e, out, ok);
-  }
-  __syncthreads();
-  s_out.store(pixels + base * 8, valid + base, rows);
+  dtx::decode_tile<32, kRounds, 14>(
+      words, n, pixels, valid,
+      [&](const uint4& w, uint32_t* out) {
+        return dtx::bc6h_decode_block<kSigned>(w.x, w.y, w.z, w.w, mode_mask,
+                                               out);
+      },
+      [](const uint4& w) {
+        const int mode = dtx::bc6h_mode(w.x);
+        return mode < 0 ? 0u : (uint32_t)mode;
+      });
 }
 
 }  // namespace

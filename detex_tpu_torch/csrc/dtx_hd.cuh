@@ -2,7 +2,7 @@
 // and g++ (the host builds the CPU tests load) compile from one source,
 // the read-only tables those functions share, the kernels' launch
 // geometry (128 threads a CUDA block) and their stores: per thread, or
-// staged through shared memory as a tile (TileOut).
+// staged through shared memory as a tile (TileOut, decode_tile).
 
 #pragma once
 
@@ -46,6 +46,8 @@ inline unsigned int grid(long long n, int tile = kThreads) {
 }
 
 // One thread's kWords output words as kWords / 4 16 B vector stores.
+// Across a warp these lie kWords * 4 B apart; the 64 B-row kernels move to
+// TileOut (decode_tile) one pair at a time.
 template <int kWords>
 __device__ __forceinline__ void store_words(uint4* dst, const uint32_t* out) {
 #pragma unroll
@@ -150,6 +152,80 @@ __device__ __forceinline__ void order_rows(const uint32_t (&bin)[kRounds],
     }
   }
   __syncthreads();
+}
+
+// A CUDA block's share of a kernel whose 4x4 blocks decode on their own,
+// kWords words each: the tile of kThreads * kRounds consecutive blocks
+// from words[blockIdx.x * kTile], thread t taking tile rows t, t +
+// kThreads, ...  decode(w, out) decodes the block whose words are w into
+// out[kWords] and returns its valid flag.  The rows go through a TileOut
+// and leave in order; a ragged last tile stores only its rows.  Launch
+// with grid(n, kThreads * kRounds).
+template <int kWords, int kRounds, class Word, class Decode>
+__device__ __forceinline__ void decode_tile(const Word* __restrict__ words,
+                                            long long n,
+                                            uint4* __restrict__ pixels,
+                                            bool* __restrict__ valid,
+                                            Decode decode) {
+  constexpr int kTile = kThreads * kRounds;
+  __shared__ TileOut<kWords, kTile> s_out;
+  const long long base = (long long)blockIdx.x * kTile;
+  const int rows = n - base < kTile ? (int)(n - base) : kTile;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int e = r * kThreads + threadIdx.x;
+    if (e < rows) {
+      const Word w = words[base + e];  // one vector load
+      uint32_t out[kWords];
+      const bool ok = decode(w, out);
+      s_out.put(e, out, ok);
+    }
+  }
+  __syncthreads();
+  s_out.store(pixels + base * (kWords / 4), valid + base, rows);
+}
+
+// decode_tile with the tile's blocks decoded in the order of key(w) <
+// kBins (order_rows), so that a warp mostly decodes blocks of one key, a
+// decoder's mode: the words are staged in shared memory first.
+template <int kWords, int kRounds, uint32_t kBins, class Word, class Decode,
+          class Key>
+__device__ __forceinline__ void decode_tile(const Word* __restrict__ words,
+                                            long long n,
+                                            uint4* __restrict__ pixels,
+                                            bool* __restrict__ valid,
+                                            Decode decode, Key key) {
+  constexpr int kTile = kThreads * kRounds;
+  __shared__ Word s_words[kTile];
+  __shared__ TileOut<kWords, kTile> s_out;
+  __shared__ uint16_t s_order[kTile];
+  __shared__ uint32_t s_count[kBins + 1];
+  const long long base = (long long)blockIdx.x * kTile;
+  const int rows = n - base < kTile ? (int)(n - base) : kTile;
+  uint32_t bin[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int e = r * kThreads + threadIdx.x;
+    bin[r] = kBins;
+    if (e < rows) {
+      const Word w = words[base + e];
+      s_words[e] = w;
+      bin[r] = key(w);
+    }
+  }
+  order_rows<kRounds, kBins>(bin, s_count, s_order);
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const int j = r * kThreads + threadIdx.x;
+    if (j >= rows) break;
+    const int e = s_order[j];
+    const Word w = s_words[e];
+    uint32_t out[kWords];
+    const bool ok = decode(w, out);
+    s_out.put(e, out, ok);
+  }
+  __syncthreads();
+  s_out.store(pixels + base * (kWords / 4), valid + base, rows);
 }
 
 }  // namespace dtx

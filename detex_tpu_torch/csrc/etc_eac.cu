@@ -13,28 +13,47 @@
 //
 // The six TPU bodies shared one pallas_call (L593) and laid blocks out on
 // (sublane, lane) with SWAR lanes and select trees; here each thread loads
-// its block as one 8 or 16 B vector (coalesced), decodes it in registers
-// (the colour block's mode through a switch) and writes its payload as
-// 16 B vector stores.
+// its block as one 8 or 16 B vector (coalesced) and decodes it in
+// registers (the colour block's mode through a switch).
 //
 // What bounds them on this card: per block, bytes moved (in + out + valid)
-// against integer operations (counted from the source, about):
-//   etc1                 8 + 64 + 1 B   ~250 ops
-//   etc2, etc2_pt        8 + 64 + 1 B   ~250-350 ops (by mode)
-//   etc2_eac            16 + 64 + 1 B   ~450 ops
-//   eac r11 (signed)     8 + 32 + 1 B   ~200 (~260) ops
-//   eac rg11 (signed)   16 + 64 + 1 B   ~400 (~520) ops
-// At 3.35 TB/s and roughly 17 Tops/s of 32-bit integer throughput the
-// ridge is near 5 operations per byte, so the ETC2 variants, whose warps
-// also split over the modes of their blocks, were expected to be bound by
-// integer work.  Measured on an H100 SXM (700 W) at N = 1,048,576 blocks
-// of mixed modes, they are not: the 64 B-output variants run in 47-58 us
-// (1.3-1.7 TB/s, as bc.cu's 64 B-output ones), EAC R11 in 17-19 us
-// (2.2-2.5 TB/s), so the scattered stores cap them all.
+// against integer operations (static SASS count per thread):
+//   etc1                 8 + 64 + 1 B    423 (one code path)
+//   etc2, etc2_pt        8 + 64 + 1 B    861, 1,118 (three paths by mode)
+//   etc2_eac            16 + 64 + 1 B    963
+//   eac r11 (signed)     8 + 32 + 1 B    253 (333)
+//   eac rg11 (signed)   16 + 64 + 1 B    497 (649)
+// At 3.35 TB/s and 33.4 T thread-instructions/s of issue the ridge is near
+// 10 instructions per byte, so all are bound by their bytes: 22.8 us at
+// N = 1,048,576 for the 73 B colour blocks.  The first design wrote each
+// thread's 64 B as four 16 B stores, 64 B apart across the warp; on an
+// H100 SXM (700 W) the colour kernels took 49-60 us (38-47% of the bound)
+// and etc1 (one path) ran slowest: where a warp's blocks took different
+// paths its stores spread out (etc2's row-shuffled batch 39.6 us, its
+// sorted one 51.9).
 //
-// Left for later work: coalesced stores through shared memory (a thread's
-// 32-64 B lie at that stride across the warp, as in bc.cu); mode-sorted
-// batches against warp divergence on mixed-mode textures.
+// etc_kernel now: a CUDA block's 128 threads decode a tile of 128
+// consecutive blocks into shared memory (dtx::decode_tile: dtx::TileOut,
+// 64 B rows, XOR swizzle, 8 KB and 128 B of valid flags), and after a
+// __syncthreads() the tile's 8 KB leave in order, 512 contiguous bytes per
+// warp store instruction.  With the stores coalesced, a warp's mix of
+// modes became etc2's and punchthrough's cost (row-shuffled batch 44.3 /
+// 58.8 us against 29.3 / 31.4 sorted), so their tiles are decoded in mode
+// order (dtx::order_rows, as bc6h.cu): 32.2 / 40.7 us shuffled.  ETC1's
+// shuffled and sorted batches differ by 1% and the order cost it 0.7 us,
+// so its tile stays in place.  A 256-block tile ran etc1 and etc2 1-2 us
+// slower and punchthrough 1.9 us faster (texture blocks); capping the
+// registers at 40 or 32 (launch bounds) made punchthrough spill.  On the
+// texture path's blocks (chip_smoke.py "mode batches", CUDA events; H100
+// SXM, 700 W): etc1 29.0 us (79% of the byte bound, 2.6 TB/s), etc2 31.3
+// (73%), etc2_pt 36.3 (63%); one-mode batches 28.6-32.1 us, but
+// punchthrough's differential mode (opaque or not) 34.6.  What bounds them
+// now: DRAM, which etc1 writes at 2.6 TB/s as bc.cu's bc23_kernel (2.7)
+// and BC6H's one-mode batches do (the plain-copy interleave kernels reach
+// 2.9); for etc2 and punchthrough also the warps that straddle two modes
+// of a tile.
+//
+// The other kernels still write per thread (dtx::store_words).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,19 +66,26 @@ using dtx::grid;
 using dtx::kThreads;
 using dtx::store_words;
 
+constexpr int kRounds = 1;  // blocks per thread of etc_kernel: a tile of 128
+constexpr int kTile = kThreads * kRounds;
+
+// ETC1 decodes its tile in order; ETC2 and punchthrough, whose modes take
+// three code paths, decode theirs ordered by mode.
 template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     etc_kernel(const uint2* __restrict__ words, long long n,
                uint32_t mode_mask, uint32_t flags,
                uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint2 w = words[i];
-  uint32_t out[16];
-  const bool ok = dtx::etc_decode_block<kKind>(w.x, w.y, mode_mask, flags,
-                                               out);
-  store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  const auto decode = [&](const uint2& w, uint32_t* out) {
+    return dtx::etc_decode_block<kKind>(w.x, w.y, mode_mask, flags, out);
+  };
+  if constexpr (kKind == dtx::kEtc1) {
+    dtx::decode_tile<16, kRounds>(words, n, pixels, valid, decode);
+  } else {
+    dtx::decode_tile<16, kRounds, 5>(
+        words, n, pixels, valid, decode,
+        [](const uint2& w) { return (uint32_t)dtx::etc_mode<kKind>(w.x); });
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -121,7 +147,7 @@ extern "C" int dtx_etc_decode(const void* words, long long n,
   auto kernel = variant == 0   ? etc_kernel<dtx::kEtc1>
                 : variant == 1 ? etc_kernel<dtx::kEtc2>
                                : etc_kernel<dtx::kEtc2Pt>;
-  kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint2*>(words), n, mode_mask, flags,
       static_cast<uint4*>(pixels), static_cast<bool*>(valid));
   return (int)cudaGetLastError();

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from detex_tpu_torch.ops import bc, bitops, rgtc
 
 _REPO = Path(__file__).resolve().parent.parent
@@ -403,3 +404,38 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
                        device=cuda)[1:].view(9, k))
     pix, valid = fn(torch.zeros((0, k), dtype=torch.int32, device=cuda))
     assert pix.shape == (0, _VARIANTS[variant][4]) and valid.shape == (0,)
+
+
+_T = chip_smoke._BC23_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 5])
+@pytest.mark.parametrize("variant", ["bc2", "bc3"])
+def test_cuda_tile_edge_sizes(cuda, variant, n):
+    """bc23_kernel's tile: N below one tile, whole tiles and a ragged last
+    tile, under every flag setting."""
+    rng = np.random.default_rng(17)
+    words = torch.from_numpy(_words(branch_blocks(variant, n, rng)))
+    words = words.to(cuda)
+    for fl in _FLAGS:
+        p0, v0 = _plain(variant)(words, _FULL, fl)
+        p1, v1 = _wrapper(variant)(words, _FULL, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), fl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bc2", "bc3"])
+def test_cuda_tile_shuffled_batch(cuda, variant):
+    """Branch-forced blocks shuffled by row, so every warp mixes the forced
+    branches, under every flag setting."""
+    rng = np.random.default_rng(19)
+    blocks = branch_blocks(variant, 3 * _T + 5, rng)
+    words = torch.from_numpy(_words(blocks[rng.permutation(len(blocks))]))
+    words = words.to(cuda)
+    for fl in _FLAGS:
+        p0, v0 = _plain(variant)(words, _FULL, fl)
+        p1, v1 = _wrapper(variant)(words, _FULL, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), fl

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import etc_branch_blocks
 from detex_tpu_torch.ops import bitops, eac, etc
 
@@ -239,6 +240,48 @@ def test_branch_blocks_reach_every_branch():
         assert ((w[:, k] & 0xFF) == 0x80).sum() >= 128
 
 
+_COLOUR = ["etc1", "etc2", "etc2_punchthrough"]
+
+
+@pytest.mark.parametrize("variant", _COLOUR)
+def test_mode_key_matches_decoder(variant):
+    """chip_smoke.etc_mode_key, by which the card's mode batches are sorted
+    and checked, against the plain version's valid flags under one-mode
+    masks: a block is valid under mask 1 << m only in mode m (ETC1 also
+    rejects an overflowing differential block)."""
+    blocks = _blocks(variant)
+    key = chip_smoke.etc_mode_key(variant, blocks)
+    for m in chip_smoke._ETC_MODES[variant]:
+        _, valid = _twin(variant, blocks, 1 << m, 0)
+        assert not (valid & (key != m)).any(), m
+        if variant != "etc1" or m == 0:
+            np.testing.assert_array_equal(valid, key == m)
+    assert set(np.unique(key)) == set(chip_smoke._ETC_MODES[variant])
+
+
+@pytest.mark.parametrize("variant", _COLOUR)
+def test_mode_batches_hold_their_modes(variant):
+    """The card's ETC mode batches: the shuffled and sorted batches hold the
+    texture batch's rows, sorted by mode; each one-mode batch decodes
+    valid under its mode's mask bit alone."""
+    rng = np.random.default_rng(13)
+    blocks = etc_branch_blocks(variant, 2048, rng)
+    batches = chip_smoke.etc_mode_batches(variant, blocks, rng)
+
+    def rows(b):
+        return np.sort(b.view(np.uint64)[:, 0])
+
+    assert batches["texture"] is blocks
+    for k in ("mixed", "sorted"):
+        np.testing.assert_array_equal(rows(batches[k]), rows(blocks))
+    assert not np.array_equal(batches["mixed"], blocks)
+    key = chip_smoke.etc_mode_key(variant, batches["sorted"])
+    assert (np.diff(key) >= 0).all()
+    for m in chip_smoke._ETC_MODES[variant]:
+        _, valid = _twin(variant, batches[f"mode{m}"], _FULL ^ (1 << m), 0)
+        assert not valid.any(), m
+
+
 def test_twin_decodes_invalid_blocks():
     """Blocks rejected by their valid flag are still decoded: only valid
     says so (the engine zeroes them in the target format)."""
@@ -403,3 +446,38 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
                        device=cuda)[1:].view(9, k))
     pix, valid = fn(torch.zeros((0, k), dtype=torch.int32, device=cuda))
     assert pix.shape == (0, _VARIANTS[variant][4]) and valid.shape == (0,)
+
+
+_T = chip_smoke._ETC_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 5])
+@pytest.mark.parametrize("variant", _COLOUR)
+def test_cuda_tile_edge_sizes(cuda, variant, n):
+    """etc_kernel's tile: N below one tile, whole tiles and a ragged last
+    tile, under every setting."""
+    rng = np.random.default_rng(17)
+    words = torch.from_numpy(_words(etc_branch_blocks(variant, n, rng)))
+    words = words.to(cuda)
+    for mm, fl in _SETTINGS:
+        p0, v0 = _plain(variant)(words, mm, fl)
+        p1, v1 = _wrapper(variant)(words, mm, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), (mm, fl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", _COLOUR)
+def test_cuda_tile_shuffled_batch(cuda, variant):
+    """The texture path's blocks shuffled by row, so every warp holds
+    blocks of every mode, under every setting."""
+    rng = np.random.default_rng(19)
+    blocks = etc_branch_blocks(variant, 3 * _T + 5, rng)
+    words = torch.from_numpy(_words(blocks[rng.permutation(len(blocks))]))
+    words = words.to(cuda)
+    for mm, fl in _SETTINGS:
+        p0, v0 = _plain(variant)(words, mm, fl)
+        p1, v1 = _wrapper(variant)(words, mm, fl)
+        torch.cuda.synchronize()
+        assert torch.equal(v0, v1) and torch.equal(p0, p1), (mm, fl)
