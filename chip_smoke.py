@@ -34,10 +34,11 @@ all at once) and drives the port's three paths:
     each tool's main() run once;
   * "mode batches", last, so that it cannot move the device times read
     before it: the device time of the tile kernels (BC7, BC6H, the ETC
-    colour kernel for ETC1/ETC2/punchthrough, BC2/BC3) on blocks of mixed
-    modes, the same blocks sorted by mode and one-mode batches (ETC: the
-    texture path's blocks, their row-shuffled copy, sorted, one-mode;
-    BC2/BC3: the texture path's blocks), each kernel held to its plain
+    colour kernel for ETC1/ETC2/punchthrough, BC2/BC3, BC1/BC1A, EAC RG11)
+    on blocks of mixed modes, the same blocks sorted by mode and one-mode
+    batches (ETC: the texture path's blocks, their row-shuffled copy,
+    sorted, one-mode; BC2/BC3: the texture path's blocks; BC1/BC1A and
+    EAC RG11: those and their row-shuffled copy), each kernel held to its plain
     version there and at its tile's edge sizes, and the profiler's reading
     of each kernel before and after those rounds.
 
@@ -1088,8 +1089,8 @@ def _bptc_texture(smi: str) -> int:
 _BC7_MODE = np.array([0 if b == 0 else (b & -b).bit_length() - 1
                       for b in range(256)])
 # Tiles, 128 threads x kRounds blocks: bc7.cu's 256; bc6h.cu's, etc_eac.cu's
-# (etc_kernel) and bc.cu's (bc23_kernel) 128.
-_BC7_TILE, _BC6H_TILE, _ETC_TILE, _BC23_TILE = 256, 128, 128, 128
+# (etc_kernel, eac_rg11_kernel) and bc.cu's (bc1_kernel, bc23_kernel) 128.
+_BC7_TILE, _BC6H_TILE, _ETC_TILE, _BC_TILE = 256, 128, 128, 128
 
 
 def _mode_batches(blocks: np.ndarray, key: np.ndarray, codes) -> dict:
@@ -1144,8 +1145,11 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
     forced to each of the 14 modes; of the ETC colour kernel (etc1, etc2,
     punchthrough) on the texture path's blocks (`tex_blocks`), their
     row-shuffled copy, that sorted and one batch per mode
-    (etc_mode_batches); and of the BC2/BC3 kernel on the texture path's
-    blocks.  Each round times every (kernel, batch) once in a fresh random
+    (etc_mode_batches); of the BC2/BC3 kernel on the texture path's
+    blocks; and of the BC1/BC1A and EAC RG11 (both signs) kernels on the
+    texture path's blocks and their row-shuffled copy (their forced
+    eighths lie in contiguous rows; shuffled, every warp mixes them).
+    Each round times every (kernel, batch) once in a fresh random
     order, so clock and power drift fall on all alike; the result is the
     median over the rounds.  Every batch's output is first held bit-exact
     to the plain version, and each kernel at the edge sizes of its tile.
@@ -1166,8 +1170,14 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
                                _BC6H_CODES[:14]), _BC6H_TILE, 16 + 128 + 1),
         **{v: (etc_mode_batches(v, tex_blocks[v], rng), _ETC_TILE, 8 + 64 + 1)
            for v in _ETC_MODES},
-        **{v: ({"texture": tex_blocks[v]}, _BC23_TILE, 16 + 64 + 1)
-           for v in ("bc2", "bc3")}}
+        **{v: ({"texture": tex_blocks[v]}, _BC_TILE, 16 + 64 + 1)
+           for v in ("bc2", "bc3")},
+        **{v: ({"texture": tex_blocks[v],
+                "mixed": tex_blocks[v][rng.permutation(_N_BIG)]}, tile, nbytes)
+           for v, tile, nbytes in (
+               ("bc1", _BC_TILE, 8 + 64 + 1), ("bc1a", _BC_TILE, 8 + 64 + 1),
+               ("eac_rg11", _ETC_TILE, 16 + 64 + 1),
+               ("eac_signed_rg11", _ETC_TILE, 16 + 64 + 1))}}
     words = {(fam, k): _words(b) for fam, (bs, _, _) in fams.items()
              for k, b in bs.items()}
     fns = {"bc7_kernel": ("bc7", bptc.decode_bptc, bptc.decode_bptc_plain),
@@ -1177,23 +1187,28 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
                               bptc_float.decode_bptc_signed_float_plain),
            **{f"{_VARIANTS[v][0].replace('_decode', '_kernel')}"
               f"<{_TEMPLATE_ARG[v]}>": (v, _wrapper(v), _plain(v))
-              for v in ("etc1", "etc2", "etc2_punchthrough", "bc2", "bc3")}}
+              for v in ("etc1", "etc2", "etc2_punchthrough", "bc2", "bc3",
+                        "bc1", "bc1a", "eac_rg11", "eac_signed_rg11")}}
     first = {fam: next(iter(bs)) for fam, (bs, _, _) in fams.items()}
     for name, (fam, fn, plain) in fns.items():
         batches, tile, _ = fams[fam]
         for k in batches:
             _compare(words[(fam, k)], _FULL, 0, fn, plain, f"{name} {k}")
         edge = "mixed" if "mixed" in batches else first[fam]
+        # BC1A's flags 0x2 and 0x4 keep only 3- or only 4-colour blocks.
+        settings = ((_FULL, 0), (0x55, 2)) + (
+            ((_FULL, 4),) if fam.startswith("bc1") else ())
         for n in (1, tile - 1, tile, tile + 1, 256, 3 * tile + 5):
-            for mm, fl in ((_FULL, 0), (0x55, 2)):
+            for mm, fl in settings:
                 _compare(words[(fam, edge)][:n].contiguous(), mm, fl, fn,
                          plain, f"{name} N={n}")
     torch.cuda.synchronize()
     print(f"bits: {', '.join(fns)} bit-exact (tolerance 0) vs their plain "
           f"versions on every batch and at N = 1, T - 1, T, T + 1, 256, "
           f"3T + 5 (T = {_BC7_TILE} for BC7, {_BC6H_TILE} for BC6H, "
-          f"{_ETC_TILE} for ETC, {_BC23_TILE} for BC2/BC3) under (mode_mask, "
-          f"flags) (0x{_FULL:x}, 0) and (0x55, 2)")
+          f"{_ETC_TILE} for ETC and EAC RG11, {_BC_TILE} for BC1/BC1A and "
+          f"BC2/BC3) under (mode_mask, flags) (0x{_FULL:x}, 0) and (0x55, 2), "
+          f"BC1/BC1A also (0x{_FULL:x}, 4)")
 
     def profiled():
         """{kernel: (launch records of 10 calls, their min, median and

@@ -17,8 +17,8 @@
 // What bounds them on this card: these decodes do little integer work per
 // byte, so at large N they sit near the memory roofline.  Per block, bytes
 // moved (in + out + valid) against integer operations (static SASS count
-// per thread):
-//   bc1, bc1a       8 + 64 + 1 B   156, 163
+// per thread, the tile kernels' with their epilogue):
+//   bc1, bc1a       8 + 64 + 1 B   197, 206
 //   bc2, bc3       16 + 64 + 1 B   229, 309
 //   rgtc1           8 + 16 + 1 B   127
 //   signed rgtc1    8 + 32 + 1 B   298
@@ -31,16 +31,18 @@
 // 16-64 B stride across the warp, the 64 B-output variants move 1.4-2.0
 // TB/s and the 16-32 B-output ones 2.4-2.9 TB/s.
 //
-// bc23_kernel now: a CUDA block's 128 threads decode a tile of 128
-// consecutive blocks into shared memory (dtx::decode_tile: dtx::TileOut,
-// 64 B rows, XOR swizzle) and store the tile's 8 KB in order, 512
-// contiguous bytes per warp store instruction.  BC2/BC3 have no modes, so
-// no order.  It took bc2 from 53.3 to 31.6 us and bc3 from 61.0 to 31.3 us
-// (80-81% of the 25.4 us byte bound, 2.7 TB/s; CUDA events, chip_smoke.py
-// "mode batches"; H100 SXM, 700 W); a 256-block tile ran 1-1.5 us slower.
-// What bounds it now: DRAM, written at 2.7 TB/s as etc1's tile (2.6) and
-// BC6H's one-mode batches do (the plain-copy interleave kernels reach
-// 2.9).  bc1 and the RGTC kernels still write per thread
+// bc1_kernel and bc23_kernel now: a CUDA block's 128 threads decode a
+// tile of 128 consecutive blocks into shared memory (dtx::decode_tile:
+// dtx::TileOut, 64 B rows, XOR swizzle) and store the tile's 8 KB in
+// order, 512 contiguous bytes per warp store instruction.  BC1-BC3 have no
+// modes, so no order.  It took bc2 from 53.3 to 31.6 us, bc3 from 61.0 to
+// 31.3 us (80-81% of the 25.4 us byte bound, 2.7 TB/s) and bc1 / bc1a
+// from 52.8 / 53.4 to 28.7 / 28.7 us (80% of 22.8; the texture path's
+// blocks and their row-shuffled copy alike); a 256-block tile ran each 1-
+// 1.5 us slower (CUDA events, chip_smoke.py "mode batches"; NVIDIA H100
+// 80GB HBM3, 700.00 W).  What bounds them now: DRAM, written at 2.6-2.7
+// TB/s as etc1's tile and BC6H's one-mode batches are (the plain-copy
+// interleave kernels reach 2.9).  The RGTC kernels still write per thread
 // (dtx::store_words).
 
 #include <cuda_runtime.h>
@@ -54,21 +56,19 @@ using dtx::grid;
 using dtx::kThreads;
 using dtx::store_words;
 
+constexpr int kRounds = 1;  // blocks per thread of bc1_kernel and
+                            // bc23_kernel: a tile of 128
+constexpr int kTile = kThreads * kRounds;
+
 template <bool kAlpha>
 __global__ void __launch_bounds__(kThreads)
     bc1_kernel(const uint2* __restrict__ words, long long n, uint32_t flags,
                uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint2 w = words[i];
-  uint32_t out[16];
-  const bool ok = dtx::bc1_decode_block<kAlpha>(w.x, w.y, flags, out);
-  store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  dtx::decode_tile<16, kRounds>(
+      words, n, pixels, valid, [&](const uint2& w, uint32_t* out) {
+        return dtx::bc1_decode_block<kAlpha>(w.x, w.y, flags, out);
+      });
 }
-
-constexpr int kRounds = 1;  // blocks per thread of bc23_kernel: a tile of 128
-constexpr int kTile = kThreads * kRounds;
 
 template <bool kBC3>
 __global__ void __launch_bounds__(kThreads)
@@ -123,7 +123,7 @@ extern "C" int dtx_bc1_decode(const void* words, long long n,
   (void)mode_mask;
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = variant ? bc1_kernel<true> : bc1_kernel<false>;
-  kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint2*>(words), n, flags, static_cast<uint4*>(pixels),
       static_cast<bool*>(valid));
   return (int)cudaGetLastError();

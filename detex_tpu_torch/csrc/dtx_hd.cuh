@@ -46,8 +46,14 @@ inline unsigned int grid(long long n, int tile = kThreads) {
 }
 
 // One thread's kWords output words as kWords / 4 16 B vector stores.
-// Across a warp these lie kWords * 4 B apart; the 64 B-row kernels move to
-// TileOut (decode_tile) one pair at a time.
+// Across a warp these lie kWords * 4 B apart, so a warp store instruction
+// touches 32 separate 16 B pieces.  Used by the kernels that still write
+// per thread: rgtc1_kernel, rgtc2_kernel (bc.cu), eac_r11_kernel and
+// etc2_eac_kernel (etc_eac.cu).  Written this way, the 64 B-row kernels
+// ran at 43-49% of their byte bound (bc1 52.8 us, eac_rg11 58.4 at N =
+// 1,048,576; CUDA events, NVIDIA H100 80GB HBM3, 700.00 W); through
+// TileOut (decode_tile) bc1 takes 28.7 us and eac_rg11 34.2.  Of those
+// still here, etc2_eac and signed rgtc2 write 64 B rows.
 template <int kWords>
 __device__ __forceinline__ void store_words(uint4* dst, const uint32_t* out) {
 #pragma unroll

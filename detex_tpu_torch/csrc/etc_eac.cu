@@ -17,12 +17,13 @@
 // registers (the colour block's mode through a switch).
 //
 // What bounds them on this card: per block, bytes moved (in + out + valid)
-// against integer operations (static SASS count per thread):
+// against integer operations (static SASS count per thread, the tile
+// kernels' with their epilogue):
 //   etc1                 8 + 64 + 1 B    423 (one code path)
 //   etc2, etc2_pt        8 + 64 + 1 B    861, 1,118 (three paths by mode)
 //   etc2_eac            16 + 64 + 1 B    963
 //   eac r11 (signed)     8 + 32 + 1 B    253 (333)
-//   eac rg11 (signed)   16 + 64 + 1 B    497 (649)
+//   eac rg11 (signed)   16 + 64 + 1 B    538 (688)
 // At 3.35 TB/s and 33.4 T thread-instructions/s of issue the ridge is near
 // 10 instructions per byte, so all are bound by their bytes: 22.8 us at
 // N = 1,048,576 for the 73 B colour blocks.  The first design wrote each
@@ -53,7 +54,20 @@
 // 2.9); for etc2 and punchthrough also the warps that straddle two modes
 // of a tile.
 //
-// The other kernels still write per thread (dtx::store_words).
+// eac_rg11_kernel (both signs) takes the same in-place tile of 128: 58.4 ->
+// 34.2 us (74% of its 25.4 us byte bound) and signed 56.4 -> 41.0 us (62%),
+// the texture path's blocks and their row-shuffled copy alike (CUDA
+// events; NVIDIA H100 80GB HBM3, 700.00 W).  What holds the signed one is
+// its decode's integer work: decoded alone, with no pixel stores, it takes
+// 33.0 us (unsigned 24.6), near its 521 non-IMAD integer instructions per
+// thread over the SMs' 64 INT32 lanes a clock (31.2 us; unsigned 399,
+// 23.9), while the tile's stores alone take 32.0 us.  A 256-block tile ran
+// the signed kernel 0.6-0.8 us faster and the unsigned one no faster, and
+// four tiles per CUDA block, the next one's words loaded ahead, ran both
+// 1.5 us slower, so both signs keep the tile of 128.
+//
+// etc2_eac_kernel and eac_r11_kernel still write per thread
+// (dtx::store_words).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +80,8 @@ using dtx::grid;
 using dtx::kThreads;
 using dtx::store_words;
 
-constexpr int kRounds = 1;  // blocks per thread of etc_kernel: a tile of 128
+constexpr int kRounds = 1;  // blocks per thread of etc_kernel and
+                            // eac_rg11_kernel: a tile of 128
 constexpr int kTile = kThreads * kRounds;
 
 // ETC1 decodes its tile in order; ETC2 and punchthrough, whose modes take
@@ -119,14 +134,10 @@ template <bool kSigned>
 __global__ void __launch_bounds__(kThreads)
     eac_rg11_kernel(const uint4* __restrict__ words, long long n,
                     uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 w = words[i];
-  uint32_t out[16];
-  const bool ok = dtx::eac_rg11_decode_block<kSigned>(w.x, w.y, w.z, w.w,
-                                                      out);
-  store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  dtx::decode_tile<16, kRounds>(
+      words, n, pixels, valid, [](const uint4& w, uint32_t* out) {
+        return dtx::eac_rg11_decode_block<kSigned>(w.x, w.y, w.z, w.w, out);
+      });
 }
 
 }  // namespace
@@ -187,7 +198,7 @@ extern "C" int dtx_eac_rg11_decode(const void* words, long long n,
   (void)flags;
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = variant ? eac_rg11_kernel<true> : eac_rg11_kernel<false>;
-  kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), n, static_cast<uint4*>(pixels),
       static_cast<bool*>(valid));
   return (int)cudaGetLastError();

@@ -406,15 +406,16 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
     assert pix.shape == (0, _VARIANTS[variant][4]) and valid.shape == (0,)
 
 
-_T = chip_smoke._BC23_TILE
+_T = chip_smoke._BC_TILE
+_TILED = ["bc1", "bc1a", "bc2", "bc3"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 5])
-@pytest.mark.parametrize("variant", ["bc2", "bc3"])
+@pytest.mark.parametrize("variant", _TILED)
 def test_cuda_tile_edge_sizes(cuda, variant, n):
-    """bc23_kernel's tile: N below one tile, whole tiles and a ragged last
-    tile, under every flag setting."""
+    """bc1_kernel's and bc23_kernel's tile: N below one tile, whole tiles
+    and a ragged last tile, under every flag setting."""
     rng = np.random.default_rng(17)
     words = torch.from_numpy(_words(branch_blocks(variant, n, rng)))
     words = words.to(cuda)
@@ -426,7 +427,7 @@ def test_cuda_tile_edge_sizes(cuda, variant, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["bc2", "bc3"])
+@pytest.mark.parametrize("variant", _TILED)
 def test_cuda_tile_shuffled_batch(cuda, variant):
     """Branch-forced blocks shuffled by row, so every warp mixes the forced
     branches, under every flag setting."""

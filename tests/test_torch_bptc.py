@@ -289,14 +289,15 @@ def test_host_kernel_per_mode(jx, host_kernel, mode, mode_mask, flags):
 def test_tile_sizes_match_sources():
     """The tile sizes the card's tests and chip_smoke use for edge cases are
     the kernels' own: 128 threads x kRounds blocks in bc7.cu, bc7_pre.cu,
-    bc6h.cu, etc_eac.cu (etc_kernel) and bc.cu (bc23_kernel)."""
+    bc6h.cu, etc_eac.cu (etc_kernel, eac_rg11_kernel) and bc.cu
+    (bc1_kernel, bc23_kernel)."""
     hd = (_CSRC / "dtx_hd.cuh").read_text()
     threads = int(re.search(r"constexpr int kThreads = (\d+);", hd).group(1))
     for name, tile in (("bc7.cu", chip_smoke._BC7_TILE),
                        ("bc7_pre.cu", chip_smoke._BC7_TILE),
                        ("bc6h.cu", chip_smoke._BC6H_TILE),
                        ("etc_eac.cu", chip_smoke._ETC_TILE),
-                       ("bc.cu", chip_smoke._BC23_TILE)):
+                       ("bc.cu", chip_smoke._BC_TILE)):
         rounds = int(re.search(r"constexpr int kRounds = (\d+);",
                                (_CSRC / name).read_text()).group(1))
         assert threads * rounds == tile, name

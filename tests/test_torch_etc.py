@@ -449,14 +449,16 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
 
 
 _T = chip_smoke._ETC_TILE
+_TILED = _COLOUR + ["eac_rg11", "eac_signed_rg11"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 5])
-@pytest.mark.parametrize("variant", _COLOUR)
+@pytest.mark.parametrize("variant", _TILED)
 def test_cuda_tile_edge_sizes(cuda, variant, n):
-    """etc_kernel's tile: N below one tile, whole tiles and a ragged last
-    tile, under every setting."""
+    """etc_kernel's and eac_rg11_kernel's tile: N below one tile, whole
+    tiles and a ragged last tile, under every setting (the EAC kernels
+    ignore mode_mask and flags)."""
     rng = np.random.default_rng(17)
     words = torch.from_numpy(_words(etc_branch_blocks(variant, n, rng)))
     words = words.to(cuda)
@@ -468,10 +470,11 @@ def test_cuda_tile_edge_sizes(cuda, variant, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", _COLOUR)
+@pytest.mark.parametrize("variant", _TILED)
 def test_cuda_tile_shuffled_batch(cuda, variant):
     """The texture path's blocks shuffled by row, so every warp holds
-    blocks of every mode, under every setting."""
+    blocks of every mode (EAC: every forced multiplier and base), under
+    every setting."""
     rng = np.random.default_rng(19)
     blocks = etc_branch_blocks(variant, 3 * _T + 5, rng)
     words = torch.from_numpy(_words(blocks[rng.permutation(len(blocks))]))
