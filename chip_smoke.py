@@ -34,13 +34,14 @@ all at once) and drives the port's three paths:
     each tool's main() run once;
   * "mode batches", last, so that it cannot move the device times read
     before it: the device time of the tile kernels (BC7, BC6H, the ETC
-    colour kernel for ETC1/ETC2/punchthrough, BC2/BC3, BC1/BC1A, EAC RG11)
-    on blocks of mixed modes, the same blocks sorted by mode and one-mode
-    batches (ETC: the texture path's blocks, their row-shuffled copy,
-    sorted, one-mode; BC2/BC3: the texture path's blocks; BC1/BC1A and
-    EAC RG11: those and their row-shuffled copy), each kernel held to its plain
-    version there and at its tile's edge sizes, and the profiler's reading
-    of each kernel before and after those rounds.
+    colour kernel for ETC1/ETC2/punchthrough, ETC2_EAC, BC2/BC3, BC1/BC1A,
+    EAC RG11) on blocks of mixed modes, the same blocks sorted by mode and
+    one-mode batches (ETC and ETC2_EAC: the texture path's blocks, their
+    row-shuffled copy, sorted, one-mode; BC2/BC3: the texture path's
+    blocks; BC1/BC1A and EAC RG11: those and their row-shuffled copy),
+    each kernel held to its plain version there and at its tile's edge
+    sizes, and the profiler's reading of each kernel before and after
+    those rounds.
 
 Every kernel's time is printed beside its bound: the larger of its bytes
 over HBM's rate and, for a kernel without a conditional branch, its
@@ -553,14 +554,22 @@ def _force_etc_mode(b: np.ndarray, rows: np.ndarray, c: int, mode: int,
         b[rows, c + ch] = rng.choice(vals, len(rows))
 
 
+def _etc_colour_byte(variant: str) -> int:
+    """Offset of an ETC variant's colour block in its block: ETC2_EAC's
+    follows its 8 B alpha block."""
+    return 8 if variant == "etc2_eac" else 0
+
+
 def etc_mode_key(variant: str, blocks: np.ndarray) -> np.ndarray:
     """Each ETC colour block's mode, as csrc/etc_eac.cuh:etc_mode gives it:
     0 individual, 1 differential, 2 T, 3 H, 4 planar (ETC1: 0 or 1;
-    punchthrough's differential bit is its opacity, so never 0)."""
-    diff = (blocks[:, 3] & 2) != 0
+    punchthrough's differential bit is its opacity, so never 0; ETC2_EAC's
+    colour block is ETC2's)."""
+    c = _etc_colour_byte(variant)
+    diff = (blocks[:, c + 3] & 2) != 0
     if variant == "etc1":
         return diff.astype(np.int64)
-    r, g, b = (_ETC_OVERFLOWS[blocks[:, c]] for c in range(3))
+    r, g, b = (_ETC_OVERFLOWS[blocks[:, c + k]] for k in range(3))
     mode = np.where(r, 2, np.where(g, 3, np.where(b, 4, 1)))
     return mode if variant == "etc2_punchthrough" else np.where(diff, mode, 0)
 
@@ -584,7 +593,7 @@ def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     b = rng.integers(0, 256, (n, 16 if wide else 8), np.uint8)
     e = [np.arange(k * n // 8, (k + 1) * n // 8) for k in range(8)]
     if variant.startswith("etc"):
-        c = 8 if variant == "etc2_eac" else 0
+        c = _etc_colour_byte(variant)
         b[e[1], c + 3] &= 0xFD
         for k, mode in ((2, 1), (3, 2), (4, 3), (5, 4)):
             b[e[k], c + 3] |= 2
@@ -1089,7 +1098,8 @@ def _bptc_texture(smi: str) -> int:
 _BC7_MODE = np.array([0 if b == 0 else (b & -b).bit_length() - 1
                       for b in range(256)])
 # Tiles, 128 threads x kRounds blocks: bc7.cu's 256; bc6h.cu's, etc_eac.cu's
-# (etc_kernel, eac_rg11_kernel) and bc.cu's (bc1_kernel, bc23_kernel) 128.
+# (etc_kernel, etc2_eac_kernel, eac_rg11_kernel) and bc.cu's (bc1_kernel,
+# bc23_kernel) 128.
 _BC7_TILE, _BC6H_TILE, _ETC_TILE, _BC_TILE = 256, 128, 128, 128
 
 
@@ -1106,19 +1116,21 @@ def _mode_batches(blocks: np.ndarray, key: np.ndarray, codes) -> dict:
     return batches
 
 
-# The modes of each ETC colour variant's one-mode batches.
+# The modes of each ETC variant's one-mode batches.
 _ETC_MODES = {"etc1": (0, 1), "etc2": (0, 1, 2, 3, 4),
-              "etc2_punchthrough": (1, 2, 3, 4)}
+              "etc2_punchthrough": (1, 2, 3, 4), "etc2_eac": (0, 1, 2, 3, 4)}
 
 
 def etc_mode_batches(variant: str, blocks: np.ndarray, rng) -> dict:
-    """An ETC colour variant's blocks as the texture path draws them
+    """An ETC variant's blocks as the texture path draws them
     (etc_branch_blocks: forced eighths in contiguous row ranges, so most
     warps see one mode), their row-shuffled copy (modes mixed in every
-    warp), that copy sorted by mode, and one batch per mode that keeps the
-    blocks' other bits (ETC1 and ETC2 through the differential bit,
-    ETC2 and punchthrough modes 1-4 through the colour bytes; punchthrough
-    keeps its opacity bits)."""
+    warp), that copy sorted by colour mode, and one batch per mode that
+    keeps the blocks' other bits (ETC1, ETC2 and ETC2_EAC through the
+    differential bit, the last two and punchthrough modes 1-4 through the
+    colour bytes; punchthrough keeps its opacity bits, ETC2_EAC its alpha
+    block)."""
+    c = _etc_colour_byte(variant)
     mixed = blocks[rng.permutation(len(blocks))]
     batches = {"texture": blocks, "mixed": mixed,
                "sorted": mixed[np.argsort(etc_mode_key(variant, mixed),
@@ -1126,9 +1138,9 @@ def etc_mode_batches(variant: str, blocks: np.ndarray, rng) -> dict:
     for m in _ETC_MODES[variant]:
         b = blocks.copy()
         if variant != "etc2_punchthrough":
-            b[:, 3] = (b[:, 3] & 0xFD) | (2 if m else 0)
+            b[:, c + 3] = (b[:, c + 3] & 0xFD) | (2 if m else 0)
         if variant != "etc1" and m:
-            _force_etc_mode(b, np.arange(len(b)), 0, m, rng)
+            _force_etc_mode(b, np.arange(len(b)), c, m, rng)
         if not (etc_mode_key(variant, b) == m).all():
             raise AssertionError(f"{variant} mode{m} batch has other modes")
         batches[f"mode{m}"] = b
@@ -1143,8 +1155,9 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
     signs) on 1,048,576 blocks drawn as the texture path draws them (mode
     codes uniform over the 14 modes and the 4 reserved codes), sorted, and
     forced to each of the 14 modes; of the ETC colour kernel (etc1, etc2,
-    punchthrough) on the texture path's blocks (`tex_blocks`), their
-    row-shuffled copy, that sorted and one batch per mode
+    punchthrough) and the ETC2_EAC kernel on the texture path's blocks
+    (`tex_blocks`), their row-shuffled copy, that sorted by colour mode
+    and one batch per mode
     (etc_mode_batches); of the BC2/BC3 kernel on the texture path's
     blocks; and of the BC1/BC1A and EAC RG11 (both signs) kernels on the
     texture path's blocks and their row-shuffled copy (their forced
@@ -1168,8 +1181,8 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
                 _BC7_TILE, 16 + 64 + 1),
         "bc6h": (_mode_batches(bc6h_blocks, _bc6h_code_key(bc6h_blocks),
                                _BC6H_CODES[:14]), _BC6H_TILE, 16 + 128 + 1),
-        **{v: (etc_mode_batches(v, tex_blocks[v], rng), _ETC_TILE, 8 + 64 + 1)
-           for v in _ETC_MODES},
+        **{v: (etc_mode_batches(v, tex_blocks[v], rng), _ETC_TILE,
+               _VARIANTS[v][4] + 64 + 1) for v in _ETC_MODES},
         **{v: ({"texture": tex_blocks[v]}, _BC_TILE, 16 + 64 + 1)
            for v in ("bc2", "bc3")},
         **{v: ({"texture": tex_blocks[v],
@@ -1185,19 +1198,22 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
                               bptc_float.decode_bptc_float_plain),
            "bc6h_kernel<1>": ("bc6h", bptc_float.decode_bptc_signed_float,
                               bptc_float.decode_bptc_signed_float_plain),
-           **{f"{_VARIANTS[v][0].replace('_decode', '_kernel')}"
-              f"<{_TEMPLATE_ARG[v]}>": (v, _wrapper(v), _plain(v))
-              for v in ("etc1", "etc2", "etc2_punchthrough", "bc2", "bc3",
-                        "bc1", "bc1a", "eac_rg11", "eac_signed_rg11")}}
+           **{_label((_VARIANTS[v][0].replace("_decode", "_kernel"),
+                      _TEMPLATE_ARG[v])): (v, _wrapper(v), _plain(v))
+              for v in ("etc1", "etc2", "etc2_punchthrough", "etc2_eac",
+                        "bc2", "bc3", "bc1", "bc1a", "eac_rg11",
+                        "eac_signed_rg11")}}
     first = {fam: next(iter(bs)) for fam, (bs, _, _) in fams.items()}
     for name, (fam, fn, plain) in fns.items():
         batches, tile, _ = fams[fam]
         for k in batches:
             _compare(words[(fam, k)], _FULL, 0, fn, plain, f"{name} {k}")
         edge = "mixed" if "mixed" in batches else first[fam]
-        # BC1A's flags 0x2 and 0x4 keep only 3- or only 4-colour blocks.
+        # BC1A's flags 0x2 and 0x4 keep only 3- or only 4-colour blocks;
+        # ETC2_EAC's 0x1 rejects an alpha multiplier of 0.
         settings = ((_FULL, 0), (0x55, 2)) + (
-            ((_FULL, 4),) if fam.startswith("bc1") else ())
+            ((_FULL, 4),) if fam.startswith("bc1") else ()) + (
+            ((_FULL, 1),) if fam == "etc2_eac" else ())
         for n in (1, tile - 1, tile, tile + 1, 256, 3 * tile + 5):
             for mm, fl in settings:
                 _compare(words[(fam, edge)][:n].contiguous(), mm, fl, fn,
@@ -1208,7 +1224,7 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
           f"3T + 5 (T = {_BC7_TILE} for BC7, {_BC6H_TILE} for BC6H, "
           f"{_ETC_TILE} for ETC and EAC RG11, {_BC_TILE} for BC1/BC1A and "
           f"BC2/BC3) under (mode_mask, flags) (0x{_FULL:x}, 0) and (0x55, 2), "
-          f"BC1/BC1A also (0x{_FULL:x}, 4)")
+          f"BC1/BC1A also (0x{_FULL:x}, 4), ETC2_EAC also (0x{_FULL:x}, 1)")
 
     def profiled():
         """{kernel: (launch records of 10 calls, their min, median and

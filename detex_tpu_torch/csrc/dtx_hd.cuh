@@ -1,6 +1,7 @@
 // Qualifiers for per-block decode functions that both nvcc (the kernels)
 // and g++ (the host builds the CPU tests load) compile from one source,
-// the read-only tables those functions share, the kernels' launch
+// the read-only tables those functions share, a byte lookup in an 8-byte
+// palette (with_palette_byte3), the kernels' launch
 // geometry (128 threads a CUDA block) and their stores: per thread, or
 // staged through shared memory as a tile (TileOut, decode_tile).
 
@@ -35,6 +36,23 @@
 #define DTX_LOOKUP(name, i) (name##_host[i])
 #endif
 
+namespace dtx {
+
+// `word` with its byte 3 replaced by byte `code & 7` of the 8-byte palette
+// lo | hi << 32: on the device two PRMTs (an 8-entry byte lookup, then the
+// merge), on the host the same selection by shifts.
+DTX_HD uint32_t with_palette_byte3(uint32_t word, uint32_t lo, uint32_t hi,
+                                   uint32_t code) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(word, __byte_perm(lo, hi, code & 7u), 0x4210u);
+#else
+  const uint32_t half = (code & 4u) ? hi : lo;
+  return (word & 0xFFFFFFu) | (((half >> (8 * (code & 3u))) & 0xFFu) << 24);
+#endif
+}
+
+}  // namespace dtx
+
 #if defined(__CUDACC__)
 namespace dtx {
 
@@ -48,12 +66,12 @@ inline unsigned int grid(long long n, int tile = kThreads) {
 // One thread's kWords output words as kWords / 4 16 B vector stores.
 // Across a warp these lie kWords * 4 B apart, so a warp store instruction
 // touches 32 separate 16 B pieces.  Used by the kernels that still write
-// per thread: rgtc1_kernel, rgtc2_kernel (bc.cu), eac_r11_kernel and
-// etc2_eac_kernel (etc_eac.cu).  Written this way, the 64 B-row kernels
-// ran at 43-49% of their byte bound (bc1 52.8 us, eac_rg11 58.4 at N =
+// per thread: rgtc1_kernel, rgtc2_kernel (bc.cu) and eac_r11_kernel
+// (etc_eac.cu).  Written this way, the 64 B-row kernels ran at 43-49% of
+// their byte bound (bc1 52.8 us, eac_rg11 58.4, etc2_eac 52.4 at N =
 // 1,048,576; CUDA events, NVIDIA H100 80GB HBM3, 700.00 W); through
 // TileOut (decode_tile) bc1 takes 28.7 us and eac_rg11 34.2.  Of those
-// still here, etc2_eac and signed rgtc2 write 64 B rows.
+// still here, only signed rgtc2 writes 64 B rows (59% of its bound).
 template <int kWords>
 __device__ __forceinline__ void store_words(uint4* dst, const uint32_t* out) {
 #pragma unroll

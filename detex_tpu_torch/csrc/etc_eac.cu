@@ -21,7 +21,7 @@
 // kernels' with their epilogue):
 //   etc1                 8 + 64 + 1 B    423 (one code path)
 //   etc2, etc2_pt        8 + 64 + 1 B    861, 1,118 (three paths by mode)
-//   etc2_eac            16 + 64 + 1 B    963
+//   etc2_eac            16 + 64 + 1 B    991 (963 writing per thread)
 //   eac r11 (signed)     8 + 32 + 1 B    253 (333)
 //   eac rg11 (signed)   16 + 64 + 1 B    538 (688)
 // At 3.35 TB/s and 33.4 T thread-instructions/s of issue the ridge is near
@@ -66,8 +66,19 @@
 // four tiles per CUDA block, the next one's words loaded ahead, ran both
 // 1.5 us slower, so both signs keep the tile of 128.
 //
-// etc2_eac_kernel and eac_r11_kernel still write per thread
-// (dtx::store_words).
+// etc2_eac_kernel takes etc2's ordered tile of 128, keyed by its colour
+// word (w.z), and draws each alpha pixel from the block's 8 alpha values,
+// computed once (eac_alpha_palette) and looked up with one PRMT
+// (dtx::with_palette_byte3): 52.4 -> 35.4 us on the texture path's blocks
+// (72% of its 25.4 us byte bound), row-shuffled 48.6 -> 38.4, sorted 55.2
+// -> 33.1 (CUDA events; NVIDIA H100 80GB HBM3, 700.00 W).  In place, the
+// shuffled batch took 50.8 us; with eac_channel's per-pixel alpha rule the
+// ordered tile took 37.0.  What holds it: decoded alone, with no pixel
+// stores, it takes 28.1 us (per-pixel alpha 30.7), the tile's stores alone
+// 31.8, and the two overlap to 35.4; the shuffled batch's extra 3 us over
+// the texture path's is the warps that straddle two colour paths.
+//
+// eac_r11_kernel still writes per thread (dtx::store_words).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,8 +91,8 @@ using dtx::grid;
 using dtx::kThreads;
 using dtx::store_words;
 
-constexpr int kRounds = 1;  // blocks per thread of etc_kernel and
-                            // eac_rg11_kernel: a tile of 128
+constexpr int kRounds = 1;  // blocks per thread of the tile kernels: a
+                            // tile of 128
 constexpr int kTile = kThreads * kRounds;
 
 // ETC1 decodes its tile in order; ETC2 and punchthrough, whose modes take
@@ -103,18 +114,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ETC2_EAC decodes its tile ordered by the colour block's mode: the colour
+// words are (w.z, w.w), the alpha words (w.x, w.y).
 __global__ void __launch_bounds__(kThreads)
     etc2_eac_kernel(const uint4* __restrict__ words, long long n,
                     uint32_t mode_mask, uint32_t flags,
                     uint4* __restrict__ pixels, bool* __restrict__ valid) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 w = words[i];
-  uint32_t out[16];
-  const bool ok = dtx::etc2_eac_decode_block(w.x, w.y, w.z, w.w, mode_mask,
-                                             flags, out);
-  store_words<16>(pixels + 4 * i, out);
-  valid[i] = ok;
+  dtx::decode_tile<16, kRounds, 5>(
+      words, n, pixels, valid,
+      [&](const uint4& w, uint32_t* out) {
+        return dtx::etc2_eac_decode_block(w.x, w.y, w.z, w.w, mode_mask,
+                                          flags, out);
+      },
+      [](const uint4& w) { return (uint32_t)dtx::etc_mode<dtx::kEtc2>(w.z); });
 }
 
 template <bool kSigned>
@@ -170,7 +182,7 @@ extern "C" int dtx_etc2_eac_decode(const void* words, long long n,
                                    void* stream) {
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  etc2_eac_kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  etc2_eac_kernel<<<grid(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(words), n, mode_mask, flags,
       static_cast<uint4*>(pixels), static_cast<bool*>(valid));
   return (int)cudaGetLastError();

@@ -4,11 +4,13 @@
 //
 // Computes what detex_tpu/ops/pallas/etc_eac_pallas.py computes, bit for
 // bit, for every input block, invalid ones included (reference semantics:
-// decompress-etc.c:72-717, decompress-eac.c:44-231).  Two cores:
+// decompress-etc.c:72-717, decompress-eac.c:44-231).  Three cores:
 //   etc_color_block<Kind>  the ETC colour rules (_etc2_pixels_swar L160
 //                          with _swar_pixel_loop L318)
-//   eac_channel<Rule>      the EAC rules (L398-483): 8-bit alpha, unsigned
-//                          and signed 11-bit
+//   eac_channel<Rule>      the EAC 11-bit rules (L398-483), unsigned and
+//                          signed
+//   eac_alpha_palette      the EAC 8-bit alpha rule, as the block's 8
+//                          values (one byte lookup a pixel)
 // and on them one decoder per TPU kernel:
 //   etc_decode_block<kEtc1 / kEtc2 / kEtc2Pt>  _etc1_kernel (L490),
 //                                              _etc2_kernel (L509),
@@ -48,7 +50,7 @@
 namespace dtx {
 
 enum EtcKind { kEtc1 = 0, kEtc2 = 1, kEtc2Pt = 2 };
-enum EacRule { kEacAlpha = 0, kEacU11 = 1, kEacS11 = 2 };
+enum EacRule { kEacU11, kEacS11 };
 
 // ETC modifier rows are [a, b, -a, -b] (decompress-etc.c:25-34): a in
 // 6-bit and b in 8-bit fields, codeword k in field k.  The punchthrough
@@ -336,13 +338,11 @@ DTX_HD int eac_modifier(uint32_t row, uint32_t code) {
   return (code & 4u) ? -v - 1 : v;
 }
 
-// One EAC channel of 16 pixels, as bit patterns: kEacAlpha 8-bit alpha,
-// clamp255(base + modifier * multiplier) (decompress-eac.c:54-86; a
-// multiplier of 0 gives the base); kEacU11 unsigned 11-bit, base * 8 + 4
-// with the multiplier * 8 raised to 1 from 0, clamped to [0, 2047] and
-// replicated to 16 bits (decompress-eac.c:111-128); kEacS11 signed 11-bit,
-// int8 base * 8, clamped to [-1023, 1023], the magnitude replicated
-// (|v| << 5 | |v| >> 5) under the sign, as a 16-bit pattern
+// One EAC 11-bit channel of 16 pixels, as 16-bit patterns: kEacU11
+// unsigned, base * 8 + 4 with the multiplier * 8 raised to 1 from 0,
+// clamped to [0, 2047] and replicated to 16 bits (decompress-eac.c:
+// 111-128); kEacS11 signed, int8 base * 8, clamped to [-1023, 1023], the
+// magnitude replicated (|v| << 5 | |v| >> 5) under the sign
 // (decompress-eac.c:159-202).  Returns false for a signed base of -128,
 // which still decodes.
 template <int Rule>
@@ -352,15 +352,12 @@ DTX_HD bool eac_channel(uint32_t w0, uint32_t w1, uint32_t vals[16]) {
   const int mult = (int)(w0 >> 12) & 0xF;
   const int byte0 = (int)w0 & 0xFF;
   const int mult8 = mult ? mult * 8 : 1;
-  const int base = Rule == kEacU11   ? byte0 * 8 + 4
-                   : Rule == kEacS11 ? (byte0 - ((byte0 & 0x80) << 1)) * 8
-                                     : byte0;
+  const int base = Rule == kEacU11 ? byte0 * 8 + 4
+                                   : (byte0 - ((byte0 & 0x80) << 1)) * 8;
 DTX_UNROLL
   for (int j = 0; j < 16; ++j) {
     const int mod = eac_modifier(row, eac_code(q, j));
-    if (Rule == kEacAlpha) {
-      vals[j] = (uint32_t)clamp255(base + mod * mult);
-    } else if (Rule == kEacU11) {
+    if (Rule == kEacU11) {
       const int v = clamp_int(base + mod * mult8, 0, 2047);
       vals[j] = (uint32_t)((v << 5) | (v >> 6));
     } else {
@@ -373,6 +370,25 @@ DTX_UNROLL
   return Rule != kEacS11 || byte0 != 0x80;
 }
 
+// The 8 values of an EAC alpha block, clamp255(base + modifier(code) *
+// multiplier) for codes 0..7 (decompress-eac.c:54-86; a multiplier of 0
+// gives the base), code k in byte k of lo | hi << 32, so that each pixel
+// takes one byte lookup (with_palette_byte3) in place of the rule's ~10
+// integer instructions.  Codes 4..7 are -(codes 0..3) - 1 (kEacRows).
+DTX_HD void eac_alpha_palette(uint32_t w0, uint32_t& lo, uint32_t& hi) {
+  const uint32_t row = DTX_LOOKUP(kEacRows, (w0 >> 8) & 0xFu);
+  const int mult = (int)(w0 >> 12) & 0xF;
+  const int base = (int)w0 & 0xFF;
+  lo = 0;
+  hi = 0;
+DTX_UNROLL
+  for (int k = 0; k < 4; ++k) {
+    const int vm = ((int)((row >> (5 * k)) & 31u) - 16) * mult;
+    lo |= (uint32_t)clamp255(base + vm) << (8 * k);
+    hi |= (uint32_t)clamp255(base - mult - vm) << (8 * k);
+  }
+}
+
 // ETC2_EAC: alpha block in (aw0, aw1), ETC2 colour in (cw0, cw1)
 // (etc_eac_pallas.py:534).  valid: mode_mask bit `mode`; FLAG_ENCODE
 // (0x1) rejects an alpha multiplier of 0.
@@ -380,11 +396,12 @@ DTX_HD bool etc2_eac_decode_block(uint32_t aw0, uint32_t aw1, uint32_t cw0,
                                   uint32_t cw1, uint32_t mode_mask,
                                   uint32_t flags, uint32_t out[16]) {
   const int mode = etc_color_block<kEtc2>(cw0, cw1, out);
-  uint32_t alpha[16];
-  eac_channel<kEacAlpha>(aw0, aw1, alpha);
+  uint32_t lo, hi;
+  eac_alpha_palette(aw0, lo, hi);
+  const uint64_t q = eac_codes(aw0, aw1);
 DTX_UNROLL
   for (int j = 0; j < 16; ++j) {
-    out[j] = (out[j] & 0xFFFFFFu) | (alpha[j] << 24);
+    out[j] = with_palette_byte3(out[j], lo, hi, eac_code(q, j));
   }
   bool valid = (mode_mask >> mode) & 1u;
   if ((flags & 0x1u) && ((aw0 >> 12) & 0xFu) == 0) valid = false;

@@ -68,4 +68,13 @@ void dtx_eac_rg11_decode_host(const uint32_t* words, long long n,
   }
 }
 
+// dtx::with_palette_byte3 on n (word, lo, hi, code) quadruples.
+void dtx_with_palette_byte3_host(const uint32_t* word, const uint32_t* lo,
+                                 const uint32_t* hi, const uint32_t* code,
+                                 long long n, uint32_t* out) {
+  for (long long i = 0; i < n; ++i) {
+    out[i] = dtx::with_palette_byte3(word[i], lo[i], hi[i], code[i]);
+  }
+}
+
 }  // extern "C"

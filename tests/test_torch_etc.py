@@ -241,9 +241,12 @@ def test_branch_blocks_reach_every_branch():
 
 
 _COLOUR = ["etc1", "etc2", "etc2_punchthrough"]
+# The variants chip_smoke times on mode batches (etc_mode_batches), keyed
+# by the mode of their colour block.
+_MODE_KEYED = _COLOUR + ["etc2_eac"]
 
 
-@pytest.mark.parametrize("variant", _COLOUR)
+@pytest.mark.parametrize("variant", _MODE_KEYED)
 def test_mode_key_matches_decoder(variant):
     """chip_smoke.etc_mode_key, by which the card's mode batches are sorted
     and checked, against the plain version's valid flags under one-mode
@@ -259,17 +262,18 @@ def test_mode_key_matches_decoder(variant):
     assert set(np.unique(key)) == set(chip_smoke._ETC_MODES[variant])
 
 
-@pytest.mark.parametrize("variant", _COLOUR)
+@pytest.mark.parametrize("variant", _MODE_KEYED)
 def test_mode_batches_hold_their_modes(variant):
     """The card's ETC mode batches: the shuffled and sorted batches hold the
     texture batch's rows, sorted by mode; each one-mode batch decodes
-    valid under its mode's mask bit alone."""
+    valid under its mode's mask bit alone (ETC2_EAC keeps its alpha
+    blocks)."""
     rng = np.random.default_rng(13)
     blocks = etc_branch_blocks(variant, 2048, rng)
     batches = chip_smoke.etc_mode_batches(variant, blocks, rng)
 
     def rows(b):
-        return np.sort(b.view(np.uint64)[:, 0])
+        return b[np.lexsort(b.T[::-1])]
 
     assert batches["texture"] is blocks
     for k in ("mixed", "sorted"):
@@ -280,6 +284,9 @@ def test_mode_batches_hold_their_modes(variant):
     for m in chip_smoke._ETC_MODES[variant]:
         _, valid = _twin(variant, batches[f"mode{m}"], _FULL ^ (1 << m), 0)
         assert not valid.any(), m
+        if variant == "etc2_eac":
+            np.testing.assert_array_equal(batches[f"mode{m}"][:, :8],
+                                          blocks[:, :8])
 
 
 def test_twin_decodes_invalid_blocks():
@@ -374,6 +381,7 @@ def host_kernel(tmp_path_factory):
            inst, pix.ctypes.data, valid.ctypes.data)
         return pix, valid.astype(bool)
 
+    decode.lib = lib
     return decode
 
 
@@ -390,6 +398,30 @@ def test_host_kernel_bit_exact_vs_twin(host_kernel, variant, setting):
 @pytest.mark.parametrize("variant", _NAMES)
 def test_host_kernel_goldens(host_kernel, variant):
     _check_golden(host_kernel, variant)
+
+
+def test_host_palette_byte3_vs_numpy(host_kernel):
+    """csrc/dtx_hd.cuh:with_palette_byte3, the ETC2_EAC alpha lookup, built
+    for the host (shifts; on the device two PRMTs) against numpy: every
+    code 0-7, with random bits above it, which it ignores, on random words
+    and 8-byte palettes."""
+    rng = np.random.default_rng(23)
+    n = 4096
+    word, lo, hi = (rng.integers(0, 1 << 32, n, np.uint64).astype(np.uint32)
+                    for _ in range(3))
+    code = np.tile(np.arange(8, dtype=np.uint32), n // 8)
+    code |= rng.integers(0, 1 << 29, n, np.uint64).astype(np.uint32) << 3
+    palette = np.stack([lo, hi], 1).view(np.uint8)      # byte k = code k
+    want = (word & 0xFFFFFF) | (
+        palette[np.arange(n), code & 7].astype(np.uint32) << 24)
+    fn = host_kernel.lib.dtx_with_palette_byte3_host
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
+    fn.restype = None
+    out = np.zeros(n, np.uint32)
+    fn(word.ctypes.data, lo.ctypes.data, hi.ctypes.data, code.ctypes.data,
+       n, out.ctypes.data)
+    np.testing.assert_array_equal(out, want)
 
 
 # --- the CUDA kernels (on a card only) --------------------------------------
@@ -449,16 +481,16 @@ def test_cuda_wrapper_rejects_bad_input(cuda, variant):
 
 
 _T = chip_smoke._ETC_TILE
-_TILED = _COLOUR + ["eac_rg11", "eac_signed_rg11"]
+_TILED = _MODE_KEYED + ["eac_rg11", "eac_signed_rg11"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 5])
 @pytest.mark.parametrize("variant", _TILED)
 def test_cuda_tile_edge_sizes(cuda, variant, n):
-    """etc_kernel's and eac_rg11_kernel's tile: N below one tile, whole
-    tiles and a ragged last tile, under every setting (the EAC kernels
-    ignore mode_mask and flags)."""
+    """etc_kernel's, etc2_eac_kernel's and eac_rg11_kernel's tile: N below
+    one tile, whole tiles and a ragged last tile, under every setting (the
+    EAC 11-bit kernels ignore mode_mask and flags)."""
     rng = np.random.default_rng(17)
     words = torch.from_numpy(_words(etc_branch_blocks(variant, n, rng)))
     words = words.to(cuda)
