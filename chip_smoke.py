@@ -6,9 +6,18 @@ Builds every CUDA kernel from detex_tpu_torch/csrc (one nvcc per source,
 all at once) and drives the port's three paths:
 
   * the control step: the BC7 kernel held bit-exact against its plain
-    PyTorch version and the golden vectors, timed, then 5 requests served
-    through the full-width control step (ControllerConfig(): 64x64 BC7
-    observation, 8192 x 32 MPPI rollouts, bf16) by a Controller;
+    PyTorch version and the golden vectors, timed (also at the train
+    step's 64 x 256 blocks), then 5 requests served through the
+    full-width control step (ControllerConfig(): 64x64 BC7 observation,
+    8192 x 32 MPPI rollouts, bf16) by a Controller;
+  * the rest of the control loop at the same width: 12 steps with 2 iLQR
+    iterations (sequential backward), the parallel-LQT backward's gains
+    held to the sequential one's on one float32 linearisation, 5 steps
+    with it; a PipelinedController held to a Controller one step later;
+    20 dynamics training steps on BC7-compressed observations (batch 64,
+    two BC7 launches a step; the kernel's decode bit-equal to the plain
+    version's and one step's loss within rtol 1e-5), then 3 iLQR steps
+    served with the trained parameters; and the dtx-train CLI;
   * the texture engine: the BC1/BC1A, BC2/BC3, RGTC1 and RGTC2 (signed
     and unsigned) kernels, the ETC1/ETC2/ETC2 punchthrough, ETC2_EAC,
     EAC R11 and RG11 (signed and unsigned) kernels and the BC6H kernel
@@ -60,6 +69,8 @@ printing a result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import math
 import re
@@ -80,14 +91,18 @@ from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch import formats as F
 from detex_tpu_torch import io as tio
 from detex_tpu_torch.cli import convert as cli_convert
+from detex_tpu_torch.cli import train as cli_train
 from detex_tpu_torch.mpc import dynamics as D
+from detex_tpu_torch.mpc import ilqr as ILQR
 from detex_tpu_torch.mpc import runtime as R
+from detex_tpu_torch.mpc import train_loop as TL
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 from detex_tpu_torch.texture import Texture
 from detex_tpu_torch.tools import interleave_probe as IP
 from detex_tpu_torch.tools import mxu_probe as MP
 from detex_tpu_torch.tools import profile_sections as PS
+from detex_tpu_torch.utils.metrics import MetricsLogger
 
 _REPO = Path(__file__).resolve().parent
 _GOLDEN_DIR = _REPO / "tests" / "golden"
@@ -97,6 +112,8 @@ _SEED = 0
 _TEX = 4096                 # texture side: a 4K mip
 _N_BIG = (_TEX // 4) ** 2   # its blocks, 1,048,576
 _FLAGS = (0, 0x1, 0x2, 0x4)
+_TRAIN_BATCH = 64
+_TRAIN_BLOCKS = _TRAIN_BATCH * 256   # one decode_obs_batch call, 64x64 obs
 # ETC/EAC: the flags at the full mode mask, then mode masks at flags 0.
 _ETC_SETTINGS = tuple((_FULL, fl) for fl in _FLAGS) + tuple(
     (mm, 0) for mm in (0x1, 0x2, 0x4, 0x8, 0x10, 0x1A))
@@ -416,7 +433,7 @@ def _kernel_phase(rng) -> dict:
           f"the card, {len(blocks)} blocks x 4 mask/flags settings and "
           f"N=256, invalid blocks included")
     times = {}
-    for n in (256, 65536):
+    for n in (256, _TRAIN_BLOCKS, 65536):
         w = words[:n].contiguous()
         # Alternate kernel and plain version so drift hits both.
         k1 = _time_ms(lambda: bptc.decode_bptc(w))
@@ -428,10 +445,12 @@ def _kernel_phase(rng) -> dict:
               f"{p1:.5f} / {p2:.5f} ms per call")
     return {"max_abs_err": err, "ms": times[256][0],
             "plain_ms": times[256][1], "ms_65536": times[65536][0],
-            "plain_ms_65536": times[65536][1]}
+            "plain_ms_65536": times[65536][1],
+            "ms_train": times[_TRAIN_BLOCKS][0],
+            "plain_ms_train": times[_TRAIN_BLOCKS][1]}
 
 
-def _main_path(rng, smi: str) -> int:
+def _main_path(rng, smi: str) -> tuple:
     cfg = R.ControllerConfig()
     dcfg, mcfg = cfg.dynamics, cfg.mppi
     gen = torch.Generator(device="cuda")
@@ -496,7 +515,345 @@ def _main_path(rng, smi: str) -> int:
     print("main path: kernel decode and plain decode give equal images and "
           f"actions (max action diff "
           f"{float((out_k[0] - out_p[0]).abs().max()):.3g})")
+    return launches, statistics.median(step_ms)
+
+
+# --- the rest of the control loop: iLQR, pipelining, training ---------------
+
+
+def _requests(rng, n: int, dcfg) -> list:
+    """n observations of random BC7 words (invalid blocks among them)."""
+    n_blocks = (dcfg.image_size // 4) ** 2
+    return [rng.integers(-2**31, 2**31, (n_blocks, 4), np.int64)
+            .astype(np.int32) for _ in range(n)]
+
+
+def _check_action(action, mcfg, diag, bounds: bool = True) -> None:
+    if action.shape != (mcfg.action_dim,) or not np.isfinite(action).all():
+        raise AssertionError(f"bad action {action!r}")
+    if bounds and ((action < mcfg.action_low).any()
+                   or (action > mcfg.action_high).any()):
+        raise AssertionError(f"action out of bounds {action!r}")
+    for k, v in diag.items():
+        if not np.isfinite(float(v)):
+            raise AssertionError(f"{k} is not finite: {float(v)}")
+
+
+def _serve(ctl, requests, mcfg, bounds: bool = True) -> tuple:
+    """Serve `requests` through ctl, checking each action: (host ms per
+    step, the action ending on the host; the actions)."""
+    step_ms, actions = [], []
+    for words in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions.append(ctl.step(words))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _check_action(actions[-1], mcfg, ctl.diag, bounds)
+    return step_ms, actions
+
+
+def _gains_check(params, cfg, words, us) -> None:
+    """The parallel-LQT backward's gains against the sequential
+    backward's on one float32 linearisation at the full width, along the
+    plan `us`.  Random weights make the latent dynamics expand about 2.4x
+    a step, so the value matrices grow without bound and the two float32
+    recursions part; the check therefore damps the dynamics' output layer
+    by 0.05 (as tests/test_torch_mpc.py does) and prints the undamped
+    reading beside it."""
+    dcfg = dataclasses.replace(cfg.dynamics, compute_dtype=torch.float32)
+    img = R.decode_obs(words, dcfg.image_size, dcfg.image_size)
+    goal = torch.zeros(dcfg.latent_dim, device="cuda")
+    cost = R.latent_cost_fn(goal, cfg)
+
+    def cost1(x, u, t):
+        return cost(x[None], u[None], t)[0]
+
+    def terminal(x):
+        return x.new_zeros(())
+
+    reg = torch.tensor(ILQR.ILQRConfig().reg_init, device="cuda")
+    for damp in (0.05, 1.0):
+        p = {part: {name: dict(layer) for name, layer in layers.items()}
+             for part, layers in params.items()}
+        p["dyn"]["out"]["w"] = params["dyn"]["out"]["w"] * damp
+
+        def dyn1(x, u, p=p):
+            return D.dynamics_apply(p, x[None], u[None], dcfg)[0]
+
+        z0 = D.encode(p, img[None].to(torch.uint8), dcfg)[0]
+        xs = ILQR._rollout(dyn1, z0, us)
+        lin = ILQR.linearize(dyn1, cost1, terminal, xs, us)
+        seq = ILQR.backward(*lin, reg)
+        par = ILQR.backward_parallel(*lin, reg)
+        errs = []
+        for name, a, b in zip(("k", "K"), par, seq):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max()) / scale
+            errs.append(f"{name}: max |par - seq| / max |seq| {err:.3g} "
+                        f"(max |seq| {scale:.3g})")
+            if damp != 1.0:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
+        print(f"ilqr gains, float32, output layer x {damp}, |x_H| "
+              f"{float(xs[-1].norm()):.4g}: {'; '.join(errs)}"
+              + (" (rtol 1e-4, atol 1e-4 max |seq|: ok)" if damp != 1.0
+                 else " (not checked)"))
+
+
+def _ilqr_stages(ctl, words) -> str:
+    """One more step of `ctl` with the card synchronised around each iLQR
+    stage: host ms per stage over the step's iterations (the line search's
+    rollouts in `_forward`; its costs and the selects in the rest)."""
+    names = ("linearize", "backward", "backward_parallel", "_forward")
+    spent = dict.fromkeys(names, 0.0)
+    saved = {n: getattr(ILQR, n) for n in names}
+
+    def timed(name):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for n in names:
+        setattr(ILQR, n, timed(n))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.step(words)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in names:
+            setattr(ILQR, n, saved[n])
+    parts = ", ".join(f"{n} {t:.3f}" for n, t in spent.items() if t)
+    return f"{parts}, rest {total - sum(spent.values()):.3f} of {total:.3f}"
+
+
+def _ilqr_path(rng, smi: str, mppi_median: float) -> int:
+    """12 full-width control steps with 2 iLQR iterations (sequential
+    backward; 2 warm-ups, 10 timed), the gains check, then 5 steps with
+    the parallel-LQT backward.  Returns the BC7 launches."""
+    cfg = R.ControllerConfig(n_ilqr_iterations=2)
+    dcfg, mcfg = cfg.dynamics, cfg.mppi
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(_SEED)
+    params = D.init_params(dcfg, gen, "cuda")
+    goal_z = torch.zeros(dcfg.latent_dim, device="cuda")
+    requests = _requests(rng, 17, dcfg)
+    # iLQR refines the MPPI plan without the action bounds, as the JAX
+    # package does (a refined action may leave them): finiteness is held,
+    # and how far the actions went is printed.
+    bptc.KERNEL_LAUNCHES = 0
+    ctl = R.Controller(params, goal_z, cfg, seed=_SEED, device="cuda")
+    seq_ms, seq_actions = _serve(ctl, requests[:12], mcfg, bounds=False)
+    seq_ms = seq_ms[2:]
+    seq_launches = bptc.KERNEL_LAUNCHES
+    print(f"ilqr: {len(requests[:12])} steps, sequential backward; last "
+          f"ilqr_cost {float(ctl.diag['ilqr_cost']):.6g}, MPPI min_cost "
+          f"{float(ctl.diag['min_cost']):.6g}")
+    pcfg = dataclasses.replace(cfg, ilqr_parallel=True)
+    pctl = R.Controller(params, goal_z, pcfg, seed=_SEED, device="cuda")
+    par_ms, par_actions = _serve(pctl, requests[12:], mcfg, bounds=False)
+    launches = bptc.KERNEL_LAUNCHES
+    for name, actions in (("sequential", seq_actions),
+                          ("parallel", par_actions)):
+        outside = sum(bool((a < mcfg.action_low).any()
+                           or (a > mcfg.action_high).any()) for a in actions)
+        print(f"ilqr {name}: max |action| "
+              f"{max(float(np.abs(a).max()) for a in actions):.4g}; "
+              f"{outside} of {len(actions)} actions outside "
+              f"[{mcfg.action_low}, {mcfg.action_high}]")
+    if seq_launches != 12 or launches != len(requests):
+        raise AssertionError(f"BC7 kernel launched {seq_launches} / "
+                             f"{launches} times in 12 / {len(requests)} "
+                             "iLQR control steps")
+    with torch.no_grad():
+        _gains_check(params, cfg, torch.from_numpy(requests[0]).cuda(),
+                     ctl.nominal)
+    print(f"ilqr stages, host ms with the card synchronised around each "
+          f"(one step, 2 iterations): sequential: "
+          f"{_ilqr_stages(ctl, requests[0])}; parallel LQT: "
+          f"{_ilqr_stages(pctl, requests[0])}")
+    print(f"ilqr step ms: median {statistics.median(seq_ms):.3f} sequential "
+          f"(10 after 2 warm-ups: {', '.join(f'{t:.3f}' for t in seq_ms)}), "
+          f"{statistics.median(par_ms):.3f} parallel LQT (5: "
+          f"{', '.join(f'{t:.3f}' for t in par_ms)}), MPPI only "
+          f"{mppi_median:.3f} (control step phase) on {smi}")
     return launches
+
+
+def _pipelined_path(rng, smi: str) -> int:
+    """A Controller and a PipelinedController, same seed, 6 requests each:
+    the pipelined actions equal the synchronous ones one step later.
+    Returns the BC7 launches."""
+    cfg = R.ControllerConfig()
+    dcfg, mcfg = cfg.dynamics, cfg.mppi
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(_SEED)
+    params = D.init_params(dcfg, gen, "cuda")
+    goal_z = torch.zeros(dcfg.latent_dim, device="cuda")
+    requests = _requests(rng, 6, dcfg)
+    bptc.KERNEL_LAUNCHES = 0
+    sync = R.Controller(params, goal_z, cfg, seed=_SEED, device="cuda")
+    pipe = R.PipelinedController(params, goal_z, cfg, seed=_SEED,
+                                 device="cuda")
+    sync_ms, sync_actions = _serve(sync, requests, mcfg)
+    pipe_actions, pipe_ms = [], []
+    torch.cuda.synchronize()
+    for words in requests:
+        t0 = time.perf_counter()
+        pipe_actions.append(pipe.step(words))
+        pipe_ms.append((time.perf_counter() - t0) * 1e3)
+    pipe_actions.append(pipe.flush())
+    launches = bptc.KERNEL_LAUNCHES
+    if launches != 2 * len(requests):
+        raise AssertionError(f"BC7 kernel launched {launches} times in "
+                             f"{2 * len(requests)} control steps")
+    if pipe_actions[0] is not None:
+        raise AssertionError("the first pipelined step returned an action")
+    for t, action in enumerate(pipe_actions[1:]):
+        _check_action(action, mcfg, pipe.diag)
+        np.testing.assert_allclose(action, sync_actions[t], rtol=0,
+                                   atol=1e-6)
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(pipe_actions[1:], sync_actions))
+    print(f"pipelined: {len(requests)} requests, actions equal the "
+          f"synchronous controller's one step later (atol 1e-6; max diff "
+          f"{diff:.3g})")
+    print(f"pipelined host ms per step call: median "
+          f"{statistics.median(pipe_ms[1:]):.3f} (each: "
+          f"{', '.join(f'{t:.3f}' for t in pipe_ms)}); synchronous "
+          f"{statistics.median(sync_ms):.3f} (each: "
+          f"{', '.join(f'{t:.3f}' for t in sync_ms)}) on {smi}")
+    return launches
+
+
+def _clone(params):
+    return {part: {name: {k: v.detach().clone() for k, v in layer.items()}
+                   for name, layer in layers.items()}
+            for part, layers in params.items()}
+
+
+def _train_compare(params, optimizer, cfg) -> None:
+    """One batch decoded by the kernel and by the plain version: equal
+    images, and one train step's loss from the same params and optimizer
+    state within rtol 1e-5 (cuDNN's weight-gradient convs may reduce in
+    another order, so not bit-equal)."""
+    dcfg = cfg.dynamics
+    env = TL.SyntheticVisualEnv(dcfg, cfg.seed, compressed=True)
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0]))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in env.sample_batch(rng, cfg.batch_size).items()}
+    out = []
+    kernel_decode = bptc.decode_bptc
+    for decode in (kernel_decode, bptc.decode_bptc_plain):
+        bptc.decode_bptc = decode
+        try:
+            images = TL.decode_batch(batch, dcfg.image_size)
+        finally:
+            bptc.decode_bptc = kernel_decode
+        p = _clone(params)
+        opt = D.make_optimizer(p, cfg.lr)
+        opt.load_state_dict(optimizer.state_dict())
+        _, loss = D.train_step(p, opt, images, dcfg)
+        out.append((images, float(loss)))
+    (img_k, loss_k), (img_p, loss_p) = out
+    for k in ("obs", "next_obs"):
+        if not torch.equal(img_k[k], img_p[k]):
+            raise AssertionError(f"train batch {k}: kernel and plain "
+                                 "decode differ")
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-5)
+    print(f"train: kernel and plain decode give equal images "
+          f"({cfg.batch_size} x 2 observations) and losses {loss_k:.9g} / "
+          f"{loss_p:.9g}")
+
+
+def _train_path(rng, smi: str) -> tuple:
+    """20 full-width training steps on BC7-compressed observations, then 3
+    iLQR control steps with the trained params.  Returns the BC7 launches
+    of the two."""
+    cfg = TL.TrainConfig(dynamics=D.DynamicsConfig(), batch_size=_TRAIN_BATCH,
+                         n_steps=20, compressed_obs=True)
+    env = TL.SyntheticVisualEnv(cfg.dynamics, cfg.seed, compressed=True)
+    stream = io.StringIO()
+    timings = []
+    make_train_step = TL.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(params, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = step(params, batch)
+            end.record()
+            timings.append((start, end, time.perf_counter() - t0))
+            return out
+        return timed
+
+    bptc.KERNEL_LAUNCHES = 0
+    TL.make_train_step = timed_make_train_step
+    try:
+        params, optimizer, last = TL.train(cfg, MetricsLogger(stream), env,
+                                           device="cuda")
+    finally:
+        TL.make_train_step = make_train_step
+    launches = bptc.KERNEL_LAUNCHES
+    torch.cuda.synchronize()
+    losses = [json.loads(x)["loss"] for x in stream.getvalue().splitlines()]
+    if launches != 2 * cfg.n_steps:
+        raise AssertionError(f"BC7 kernel launched {launches} times in "
+                             f"{cfg.n_steps} train steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}")
+    step_ms = [s.elapsed_time(e) for s, e, _ in timings][-10:]
+    host_ms = [h * 1e3 for _, _, h in timings][-10:]
+    t0 = time.perf_counter()
+    env.sample_batch(np.random.default_rng(1), cfg.batch_size)
+    data_ms = (time.perf_counter() - t0) * 1e3
+    side = cfg.dynamics.image_size
+    print(f"train: {cfg.n_steps} steps, batch {cfg.batch_size} of "
+          f"{side}x{side} BC7 observations (DynamicsConfig(), "
+          f"{cfg.dynamics.compute_dtype}); "
+          f"BC7 kernel launches {launches}; logged losses {losses}")
+    print(f"train step ms (CUDA events, last 10): median "
+          f"{statistics.median(step_ms):.3f} (each: "
+          f"{', '.join(f'{t:.3f}' for t in step_ms)}); host enqueue median "
+          f"{statistics.median(host_ms):.3f} ms, "
+          f"{statistics.median(host_ms) / statistics.median(step_ms):.1%} of "
+          f"the step; the env's host batch (BC7 encode of "
+          f"{2 * cfg.batch_size} images) {data_ms:.1f} ms, outside the "
+          f"step; on {smi}")
+    _train_compare(params, optimizer, cfg)
+
+    ccfg = R.ControllerConfig(n_ilqr_iterations=2)
+    bptc.KERNEL_LAUNCHES = 0
+    ctl = R.Controller(params, torch.zeros(ccfg.dynamics.latent_dim,
+                                           device="cuda"), ccfg,
+                       seed=_SEED, device="cuda")
+    served_ms = _serve(ctl, _requests(rng, 3, ccfg.dynamics), ccfg.mppi,
+                       bounds=False)[0]
+    served = bptc.KERNEL_LAUNCHES
+    if served != 3:
+        raise AssertionError(f"BC7 kernel launched {served} times in 3 "
+                             "control steps")
+    print(f"trained params: 3 iLQR control steps, ms "
+          f"{', '.join(f'{t:.3f}' for t in served_ms)}; last ilqr_cost "
+          f"{float(ctl.diag['ilqr_cost']):.6g}")
+    return launches, served
+
+
+def _cli_train_path() -> int:
+    """python -m detex_tpu_torch.cli.train --steps 5, in process, on the
+    card by default (its default config decodes no BC7)."""
+    bptc.KERNEL_LAUNCHES = 0
+    if cli_train.main(["--steps", "5"]) != 0:
+        raise AssertionError("dtx-train returned non-zero")
+    return bptc.KERNEL_LAUNCHES
 
 
 # --- the texture engine ------------------------------------------------------
@@ -1550,7 +1907,15 @@ def main() -> None:
     sass = _phase("sass", _sass_census)
     rng = np.random.default_rng(_SEED)
     timing = _phase("bc7 kernel", _kernel_phase, rng)
-    launches = _phase("control step", _main_path, rng, smi)
+    launches, mppi_median = _phase("control step", _main_path, rng, smi)
+    bc7_paths = {"control step": launches}
+    bc7_paths["ilqr control step"] = _phase(
+        "ilqr control step", _ilqr_path, rng, smi, mppi_median)
+    bc7_paths["pipelined controller"] = _phase(
+        "pipelined controller", _pipelined_path, rng, smi)
+    bc7_paths["train"], bc7_paths["trained ilqr steps"] = _phase(
+        "train", _train_path, rng, smi)
+    bc7_paths["cli train"] = _phase("cli train", _cli_train_path)
     texture_kernels, tex_blocks = _texture_phase(rng, smi, sass)
     tool_kernels = _tools_phase(smi, sass)
     _phase("bptc texture", _bptc_texture, smi)
@@ -1559,13 +1924,20 @@ def main() -> None:
     _phase("mode batches", _mode_batch_timing, smi, tex_blocks)
     print(f"phase all: {time.perf_counter() - t0:.2f} s")
     bound, by = _bound(256 * (16 + 64 + 1), 256, ("bc7_kernel", None), sass)
+    bound_train, _ = _bound(_TRAIN_BLOCKS * (16 + 64 + 1), _TRAIN_BLOCKS,
+                            ("bc7_kernel", None), sass)
     print(json.dumps({"kernels": [{
         "name": "bc7_decode", "route": "cuda",
         "source": "detex_tpu_torch/csrc/bc7.cu",
         "replaces": "detex_tpu/ops/pallas/bptc_pallas.py:240",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
+        "launches": sum(bc7_paths.values()),
+        "launches_by_path": bc7_paths,
+        "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        f"ms_n{_TRAIN_BLOCKS}": timing["ms_train"],
+        f"plain_ms_n{_TRAIN_BLOCKS}": timing["plain_ms_train"],
+        f"bound_ms_n{_TRAIN_BLOCKS}": bound_train,
         "ms_n65536": timing["ms_65536"],
         "plain_ms_n65536": timing["plain_ms_65536"]},
         *texture_kernels, *tool_kernels]}))

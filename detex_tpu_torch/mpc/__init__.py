@@ -1,1 +1,2 @@
-"""Visual-MPC engine: conv encoder, latent dynamics, MPPI, control step."""
+"""Visual-MPC engine: conv encoder, latent dynamics, MPPI, iLQR, the
+control step and the dynamics training loop."""

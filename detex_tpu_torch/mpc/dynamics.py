@@ -1,7 +1,9 @@
-"""Visual-latent dynamics model: conv encoder + residual MLP dynamics.
+"""Visual-latent dynamics model: conv encoder + residual MLP dynamics, and
+its training step.
 
-Counterpart of detex_tpu/mpc/dynamics.py:26-131.  Parameters are a dict
-of tensors with the JAX tree's keys:
+Counterpart of detex_tpu/mpc/dynamics.py:26-159 (not param_shardings,
+which waits for the multi-GPU layer).  Parameters are a dict of tensors
+with the JAX tree's keys:
 
   * enc/conv{i}/w: (out, in, 3, 3), torch's OIHW (JAX keeps HWIO);
   * enc/proj/w and dyn/*/w: (in, out), as in JAX, applied as x @ w;
@@ -22,13 +24,16 @@ encoder and the MLP round, matching the JAX package op for op:
 On a CUDA device, results match the JAX package only with TF32 off
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 both False); the tests and chip_smoke.py set both.
+
+Training takes a torch.optim.AdamW over every parameter (make_optimizer);
+train_step updates the parameter tensors in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +105,32 @@ def params_from_jax(tree, device=None) -> Params:
     return out
 
 
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """Every parameter tensor, in the sorted-key order of a JAX tree
+    flatten (whatever the dicts' insertion order)."""
+    return [params[part][name][k] for part in sorted(params)
+            for name in sorted(params[part])
+            for k in sorted(params[part][name])]
+
+
+def opt_state_from_jax(optimizer: torch.optim.Optimizer,
+                       adam_state) -> None:
+    """Load optax's scale_by_adam state (count, mu, nu), given as numpy
+    arrays (`jax.tree.map(np.asarray, opt_state[0])`), into `optimizer`
+    from make_optimizer: mu and nu become each parameter's exp_avg and
+    exp_avg_sq (conv moments go from HWIO to OIHW as the weights do; the
+    optimizer moves them to its parameters' device), count its step."""
+    count, mu, nu = adam_state
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    sd = optimizer.state_dict()
+    sd["state"] = {
+        i: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+        for i, (m, v) in enumerate(zip(
+            param_leaves(params_from_jax(mu)),
+            param_leaves(params_from_jax(nu))))}
+    optimizer.load_state_dict(sd)
+
+
 def _same_pad(size: int, k: int = 3, stride: int = 2) -> Tuple[int, int]:
     """XLA's padding="SAME": the total pad goes mostly after the data (for
     stride 2, k 3 on an even size: 0 before, 1 after)."""
@@ -120,7 +151,9 @@ def encode(params: Params, obs: torch.Tensor,
     cdt = cfg.compute_dtype
     x = obs.to(cdt)
     if obs.dtype in (torch.uint8, torch.int32):
-        x = x * torch.tensor(1.0 / 255.0, dtype=cdt, device=x.device)
+        # 1/255 rounded to the compute dtype on the host: a tensor made on
+        # the card from a Python number would be a copy that waits.
+        x = x * torch.tensor(1.0 / 255.0, dtype=cdt).item()
     x = x.permute(0, 3, 1, 2)                                  # NCHW
     for i in range(len(cfg.conv_features)):
         p = params["enc"][f"conv{i}"]
@@ -143,3 +176,46 @@ def dynamics_apply(params: Params, z: torch.Tensor, u: torch.Tensor,
         x = torch.relu(_dot_f32(x, p["w"], cdt) + p["b"]).to(cdt)
     p = params["dyn"]["out"]
     return z + (_dot_f32(x, p["w"], cdt) + p["b"])
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: DynamicsConfig) -> torch.Tensor:
+    """Latent one-step prediction loss.
+
+    batch: obs (B,H,W,C), action (B,A), next_obs (B,H,W,C)."""
+    z = encode(params, batch["obs"], cfg)
+    z_next = encode(params, batch["next_obs"], cfg).detach()
+    z_pred = dynamics_apply(params, z, batch["action"], cfg)
+    err = z_pred - z_next
+    # Latent regularizer keeps the encoder from collapsing to zero.
+    reg = torch.mean(torch.square(torch.mean(torch.square(z), dim=-1) - 1.0))
+    return torch.mean(torch.sum(torch.square(err), dim=-1)) + 0.01 * reg
+
+
+def make_optimizer(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
+    """AdamW over every parameter, biases included (optax.adamw(lr,
+    weight_decay=1e-5) decays every leaf); marks each as requiring grad.
+
+    The two compute the same update.  optax: mu = b1 mu + (1-b1) g,
+    nu = b2 nu + (1-b2) g^2, p -= lr (mu/(1-b1^t) / (sqrt(nu/(1-b2^t)) +
+    eps) + wd p).  torch: p *= 1 - lr wd, then p -= lr/(1-b1^t) mu /
+    (sqrt(nu)/sqrt(1-b2^t) + eps).  Both decay the parameter before the
+    step, correct both moments by the step count t, and add eps outside
+    the square root (optax's eps_root is 0); only the rounding differs."""
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-5)
+
+
+def train_step(params: Params, optimizer: torch.optim.Optimizer,
+               batch: Dict[str, torch.Tensor], cfg: DynamicsConfig):
+    """One AdamW step on `batch`, in place; returns (params, loss before
+    the step, a 0-d tensor)."""
+    optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+    optimizer.step()
+    return params, loss.detach()

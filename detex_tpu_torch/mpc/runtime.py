@@ -2,23 +2,27 @@
 
 Counterpart of detex_tpu/mpc/runtime.py.  Observations arrive as BC7
 blocks; one control step decodes them on the device (the CUDA BC7 kernel
-for CUDA tensors), encodes the image to the latent and runs one MPPI
-update, with no host round trip inside the step.
+for CUDA tensors), encodes the image to the latent, runs one MPPI update
+and, with n_ilqr_iterations > 0, refines the plan with iLQR, with no host
+round trip inside the step.  The training step decodes its batches with
+the same kernel (decode_obs_batch).
 
-Not ported yet: iLQR refinement (n_ilqr_iterations > 0 raises), the
-sharded rollouts (ControllerConfig has no rollout_axis), PipelinedController
-and the batched decode (decode_obs_batch, unpack_rgba8_images).
+Not ported yet: the sharded rollouts (ControllerConfig has no
+rollout_axis).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from detex_tpu_torch import formats as F
 from detex_tpu_torch import resolve_device
 from detex_tpu_torch.mpc import dynamics as D
+from detex_tpu_torch.mpc import ilqr as ilqr_mod
 from detex_tpu_torch.mpc import mppi as mppi_mod
 from detex_tpu_torch.ops import bptc
 
@@ -27,28 +31,47 @@ from detex_tpu_torch.ops import bptc
 class ControllerConfig:
     dynamics: D.DynamicsConfig = D.DynamicsConfig()
     mppi: mppi_mod.MPPIConfig = mppi_mod.MPPIConfig()
-    n_ilqr_iterations: int = 0     # iLQR is not ported: must stay 0
+    obs_format: int = F.BPTC
+    n_ilqr_iterations: int = 0     # 0 disables iLQR refinement
+    ilqr_parallel: bool = False    # log-depth parallel-LQT backward
     goal_weight: float = 1.0
     control_weight: float = 0.1
 
 
-def unpack_rgba8_image(packed: torch.Tensor, height: int,
-                       width: int) -> torch.Tensor:
-    """(N_blocks, 16) packed RGBA8 int32 -> (H, W, 4) int32 0..255.
+def unpack_rgba8_images(packed: torch.Tensor, height: int,
+                        width: int) -> torch.Tensor:
+    """(B, N_blocks, 16) packed RGBA8 int32 -> (B, H, W, 4) int32 0..255.
     Blocks are in row-major block order, pixels row-major in a block."""
+    b = packed.shape[0]
     hb, wb = height // 4, width // 4
-    img = packed.reshape(hb, wb, 4, 4).permute(0, 2, 1, 3) \
-        .reshape(height, width)
+    img = packed.reshape(b, hb, wb, 4, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(b, height, width)
     # `>>` is arithmetic on int32; the mask drops the copied sign bits.
     return torch.stack([img & 0xFF, (img >> 8) & 0xFF, (img >> 16) & 0xFF,
                         (img >> 24) & 0xFF], dim=-1)
 
 
+def unpack_rgba8_image(packed: torch.Tensor, height: int,
+                       width: int) -> torch.Tensor:
+    """(N_blocks, 16) packed RGBA8 int32 -> (H, W, 4) int32 0..255."""
+    return unpack_rgba8_images(packed[None], height, width)[0]
+
+
+def decode_obs_batch(words: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """Batched BC7 observation decode: (B, N_blocks, 4) words -> (B, H, W,
+    4) int32 images, one decode call (one kernel launch on a card) for
+    the whole batch.  The control step's decode_obs is its B = 1 case:
+    training and control share the perception path."""
+    b, nb, _ = words.shape
+    pix, _ = bptc.decode_bptc(words.reshape(b * nb, 4))
+    return unpack_rgba8_images(pix.reshape(b, nb, 16), height, width)
+
+
 def decode_obs(words: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """BC7 block words (N, 4) -> (H, W, 4) int32 image with values
     0..255, decoded on the words' device."""
-    pix, _ = bptc.decode_bptc(words)
-    return unpack_rgba8_image(pix, height, width)
+    return decode_obs_batch(words[None], height, width)[0]
 
 
 def latent_cost_fn(goal_z: torch.Tensor, cfg: ControllerConfig):
@@ -59,19 +82,14 @@ def latent_cost_fn(goal_z: torch.Tensor, cfg: ControllerConfig):
     return cost
 
 
-def _check_supported(cfg: ControllerConfig) -> None:
-    if cfg.n_ilqr_iterations > 0:
-        raise NotImplementedError("iLQR refinement is not ported yet")
-
-
 def control_step(params, nominal, generator, obs_words, goal_z,
                  cfg: ControllerConfig, *, eps=None):
     """One full control step: decode BC7 obs -> encode -> MPPI update ->
-    (action u_0 (A,), shifted nominal (H, A), diagnostics).
+    (optional iLQR) -> (action u_0 (A,), shifted nominal (H, A),
+    diagnostics: 0-d tensors, ilqr_cost among them with iLQR).
 
     The MPPI noise comes from `generator` unless `eps` (K, H, A) is
     given."""
-    _check_supported(cfg)
     dcfg = cfg.dynamics
     img = decode_obs(obs_words, dcfg.image_size, dcfg.image_size)
     z0 = D.encode(params, img[None].to(torch.uint8), dcfg)[0]
@@ -79,9 +97,27 @@ def control_step(params, nominal, generator, obs_words, goal_z,
     def dyn_batched(z, u):
         return D.dynamics_apply(params, z, u, dcfg)
 
+    cost = latent_cost_fn(goal_z, cfg)
     new_nominal, diag = mppi_mod.mppi_step(
-        nominal, z0, dyn_batched, latent_cost_fn(goal_z, cfg), cfg.mppi,
-        eps=eps, generator=generator)
+        nominal, z0, dyn_batched, cost, cfg.mppi, eps=eps,
+        generator=generator)
+
+    if cfg.n_ilqr_iterations > 0:
+        def dyn1(x, u):
+            return dyn_batched(x[None], u[None])[0]
+
+        def cost1(x, u, t):
+            return cost(x[None], u[None], t)[0]
+
+        def terminal(x):
+            return x.new_zeros(())
+
+        _, new_nominal, refined_cost = ilqr_mod.ilqr_solve(
+            dyn1, cost1, terminal, z0, new_nominal,
+            ilqr_mod.ILQRConfig(n_iterations=cfg.n_ilqr_iterations,
+                                parallel=cfg.ilqr_parallel))
+        diag = dict(diag, ilqr_cost=refined_cost)
+
     action = new_nominal[0]
     shifted = mppi_mod.receding_horizon_shift(new_nominal)
     return action, shifted, diag
@@ -94,7 +130,6 @@ class Controller:
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
                  seed: int = 0, device="cuda"):
-        _check_supported(cfg)
         self.device = resolve_device(device)
         self.params = params
         self.goal_z = goal_z.to(self.device)
@@ -105,7 +140,9 @@ class Controller:
                                    dtype=torch.float32, device=self.device)
         self.diag = None
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: on torch 2.11, iLQR's vmap(jacfwd(...))
+    # over inference tensors raises (no batching rule for _make_dual).
+    @torch.no_grad()
     def step(self, obs_words) -> np.ndarray:
         """(N_blocks, 4) int32 BC7 words (numpy or tensor) -> (A,) action."""
         words = torch.as_tensor(obs_words, dtype=torch.int32) \
@@ -114,3 +151,72 @@ class Controller:
             self.params, self.nominal, self.generator, words, self.goal_z,
             self.cfg)
         return action.cpu().numpy()
+
+
+class PipelinedController(Controller):
+    """One-step software pipeline over the control loop (counterpart of
+    detex_tpu/mpc/runtime.py:169-205).
+
+    `step` enqueues the whole control step on the card and returns the
+    action planned from the PREVIOUS observation: while the caller
+    actuates it and produces the next observation, the card decodes,
+    encodes and plans on the current one.  The observation goes up from a
+    reused pinned host buffer and the action comes down into one, both
+    with non_blocking=True on the current stream, so nothing on the
+    enqueue side waits for the card; a CUDA event recorded after the
+    action's copy is what the next call waits on.  The returned action
+    lags one control period; the plans equal the synchronous
+    controller's, since both draw from the same generator stream.
+
+    Two buffers of each kind alternate: the one a step writes was last
+    used two steps before, and the previous call waited on that step's
+    event.  On the CPU the same code runs with plain buffers, and the
+    copies are synchronous.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        pin = self.device.type == "cuda"
+        n_blocks = (self.cfg.dynamics.image_size // 4) ** 2
+        self._words_host = [torch.empty((n_blocks, 4), dtype=torch.int32,
+                                        pin_memory=pin) for _ in range(2)]
+        self._action_host = [torch.empty((self.cfg.mppi.action_dim,),
+                                         dtype=torch.float32,
+                                         pin_memory=pin) for _ in range(2)]
+        self._slot = 0
+        self._pending = None
+
+    @torch.no_grad()
+    def step(self, obs_words) -> Optional[np.ndarray]:
+        """Enqueue planning on `obs_words`; return the action from the
+        previous observation (None on the first call: nothing is in
+        flight yet)."""
+        slot, self._slot = self._slot, self._slot ^ 1
+        host = self._words_host[slot]
+        host.copy_(torch.as_tensor(obs_words, dtype=torch.int32))
+        words = host.to(self.device, non_blocking=True)
+        action, self.nominal, self.diag = control_step(
+            self.params, self.nominal, self.generator, words, self.goal_z,
+            self.cfg)
+        out = self._action_host[slot]
+        out.copy_(action, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        prev, self._pending = self._pending, (out, event)
+        return self._collect(prev)
+
+    def flush(self) -> Optional[np.ndarray]:
+        """Drain the pipeline: wait for the action in flight."""
+        prev, self._pending = self._pending, None
+        return self._collect(prev)
+
+    @staticmethod
+    def _collect(pending) -> Optional[np.ndarray]:
+        if pending is None:
+            return None
+        out, event = pending
+        if event is not None:
+            event.synchronize()
+        return out.numpy().copy()

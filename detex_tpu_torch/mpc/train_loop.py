@@ -1,0 +1,277 @@
+"""Dynamics-model training loop: checkpointed, metered, on one device.
+
+Counterpart of detex_tpu/mpc/train_loop.py:32-284.  The environments are
+the same numpy code, so one seed gives the same batches, byte for byte,
+in both packages.  With compressed observations the training step decodes
+the BC7 batches on the device with the control step's decode
+(runtime.decode_obs_batch: one BC7 kernel launch per batch of words).
+Checkpoints are written every `checkpoint_every` steps and a run resumes
+deterministically from `checkpoint_dir/latest`: the data stream is
+re-seeded from the restored step counter.
+
+Not ported yet: the mesh (TrainConfig.mesh_shape other than None raises),
+which waits for the multi-GPU layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from detex_tpu_torch import resolve_device
+from detex_tpu_torch.mpc import dynamics as D
+from detex_tpu_torch.mpc.runtime import decode_obs_batch
+from detex_tpu_torch.utils import checkpoint as ckpt
+from detex_tpu_torch.utils.metrics import MetricsLogger
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    dynamics: D.DynamicsConfig = D.DynamicsConfig(
+        image_size=32, conv_features=(16, 32, 64), latent_dim=64,
+        action_dim=4, hidden_dim=256)
+    batch_size: int = 64
+    n_steps: int = 100
+    lr: float = 3e-4
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    mesh_shape: Optional[tuple] = None      # not ported: must stay None
+    # Observations arrive as BC7 blocks and are decoded on the device by
+    # the control step's kernel; the env must emit obs_words and
+    # next_obs_words.
+    compressed_obs: bool = False
+
+
+class SyntheticVisualEnv:
+    """Hidden linear system z' = A z + B u rendered to uint8 images.
+
+    compressed=True emits observations as BC7 texture blocks
+    (ops/bptc_encode.py mode-6 grayscale) instead of raw images, which
+    the training step decodes on the device."""
+
+    def __init__(self, cfg: D.DynamicsConfig, seed: int = 0,
+                 state_dim: int = 8, compressed: bool = False):
+        rng = np.random.default_rng(seed)
+        self.cfg = cfg
+        self.state_dim = state_dim
+        self.compressed = compressed
+        a = rng.standard_normal((state_dim, state_dim))
+        # stable transition
+        self.A = (0.95 * a / max(1e-6, np.abs(np.linalg.eigvals(a)).max())
+                  ).astype(np.float32)
+        self.B = (0.3 * rng.standard_normal(
+            (state_dim, cfg.action_dim))).astype(np.float32)
+        n_pix = cfg.image_size * cfg.image_size * cfg.channels
+        self.render_w = rng.standard_normal(
+            (state_dim, n_pix)).astype(np.float32)
+        n_gray = cfg.image_size * cfg.image_size
+        self.render_w_gray = rng.standard_normal(
+            (state_dim, n_gray)).astype(np.float32)
+
+    def render(self, z: np.ndarray) -> np.ndarray:
+        flat = np.tanh(z @ self.render_w)
+        img = ((flat * 0.5 + 0.5) * 255.0).astype(np.uint8)
+        s = self.cfg.image_size
+        return img.reshape(z.shape[0], s, s, self.cfg.channels)
+
+    def render_words(self, z: np.ndarray) -> np.ndarray:
+        """(B, state) -> (B, n_blocks, 4) int32 BC7 block words."""
+        from detex_tpu_torch.ops import bptc_encode as E
+        s = self.cfg.image_size
+        flat = np.tanh(z @ self.render_w_gray)
+        img = ((flat * 0.5 + 0.5) * 255.0).astype(np.uint8) \
+            .reshape(z.shape[0], s, s)
+        return np.stack([E.encode_bc7_mode6_gray(im) for im in img])
+
+    def sample_batch(self, rng: np.random.Generator,
+                     batch_size: int) -> Dict[str, np.ndarray]:
+        z = rng.standard_normal((batch_size, self.state_dim)) \
+            .astype(np.float32)
+        u = rng.uniform(-1, 1, (batch_size, self.cfg.action_dim)) \
+            .astype(np.float32)
+        z_next = z @ self.A.T + u @ self.B.T
+        if self.compressed:
+            return {"obs_words": self.render_words(z), "action": u,
+                    "next_obs_words": self.render_words(z_next)}
+        return {"obs": self.render(z), "action": u,
+                "next_obs": self.render(z_next)}
+
+
+class CorpusReplayEnv:
+    """Replay env serving real BC7 corpus blocks as observations, drawn
+    from a pool of
+
+      * every block of the BC7 texture at `corpus_path` (the C reference's
+        test-texture-BPTC.ktx holds 256 mode-3 two-subset blocks), when
+        one is given and readable, and
+      * a deterministic set of random blocks behind a uniform mode prefix,
+        every BC7 mode 0-7 (any bitstring behind a valid mode prefix is a
+        valid BC7 block),
+
+    so the trained path decodes multi-subset, rotated and dual-stream
+    blocks, not just the encoder's two modes.
+
+    sample_batch's observations are state-dependent: the same hidden
+    linear system z' = A z + B u as SyntheticVisualEnv drives block
+    selection (each block position j quantizes tanh(z . w_j) into a pool
+    index).  obs_words and _draw_words draw state-independently, for
+    throughput runs.
+
+    Unlike the JAX package's env, which looks for the corpus inside a
+    checkout of the C reference by default, this one reads a corpus only
+    where the caller names its file."""
+
+    def __init__(self, cfg: D.DynamicsConfig, seed: int = 0,
+                 corpus_path: Optional[str] = None, pool_random: int = 1024,
+                 state_dim: int = 8):
+        rng = np.random.default_rng(seed)
+        self.cfg = cfg
+        self.state_dim = state_dim
+        pool = []
+        from detex_tpu_torch.io import ktx as ktx_io
+        try:
+            if corpus_path is not None:
+                tex = ktx_io.load_ktx(corpus_path)[0]
+                pool.append(np.ascontiguousarray(
+                    tex.data.reshape(tex.n_blocks, 16)).view(np.uint32)
+                    .astype(np.int64).astype(np.int32))
+        except (OSError, ValueError, ktx_io.TextureFileError):
+            pass          # missing OR corrupt corpus: random pool only
+        rand = rng.integers(0, 256, (pool_random, 16), np.uint8)
+        modes = np.arange(pool_random) % 8
+        rand[:, 0] = ((1 << modes)
+                      | (rand[:, 0].astype(np.int64)
+                         & (0xFF << (modes + 1)))).astype(np.uint8)
+        pool.append(np.ascontiguousarray(rand).view(np.uint32)
+                    .astype(np.int64).astype(np.int32))
+        self.pool = np.concatenate(pool)        # (P, 4) int32 words
+        self.n_blocks = (cfg.image_size // 4) ** 2
+        a = rng.standard_normal((state_dim, state_dim))
+        self.A = (0.95 * a / max(1e-6, np.abs(np.linalg.eigvals(a)).max())
+                  ).astype(np.float32)
+        self.B = (0.3 * rng.standard_normal(
+            (state_dim, cfg.action_dim))).astype(np.float32)
+        self.sel_w = rng.standard_normal(
+            (state_dim, self.n_blocks)).astype(np.float32)
+
+    def words_of_state(self, z: np.ndarray) -> np.ndarray:
+        """(B, state_dim) -> (B, n_blocks, 4) int32 block words, a
+        deterministic function of the hidden state."""
+        t = np.tanh(z @ self.sel_w / np.sqrt(self.state_dim))
+        idx = ((t * 0.5 + 0.5) * (self.pool.shape[0] - 1)) \
+            .astype(np.int64)
+        return self.pool[idx]
+
+    @property
+    def modes_present(self) -> set:
+        b0 = self.pool[:, 0].astype(np.int64) & 0xFF
+        present = set()
+        for m in range(8):
+            if np.any((b0 & ((1 << (m + 1)) - 1)) == (1 << m)):
+                present.add(m)
+        return present
+
+    def _draw_words(self, rng: np.random.Generator,
+                    batch_size: int) -> np.ndarray:
+        idx = rng.integers(0, self.pool.shape[0],
+                           (batch_size, self.n_blocks))
+        return self.pool[idx]                   # (B, n_blocks, 4)
+
+    def obs_words(self, rng: np.random.Generator) -> np.ndarray:
+        """(n_blocks, 4) int32: one observation for control_step."""
+        return self._draw_words(rng, 1)[0]
+
+    def sample_batch(self, rng: np.random.Generator,
+                     batch_size: int) -> Dict[str, np.ndarray]:
+        z = rng.standard_normal((batch_size, self.state_dim)) \
+            .astype(np.float32)
+        u = rng.uniform(-1, 1, (batch_size, self.cfg.action_dim)) \
+            .astype(np.float32)
+        z_next = z @ self.A.T + u @ self.B.T
+        return {"obs_words": self.words_of_state(z),
+                "action": u,
+                "next_obs_words": self.words_of_state(z_next)}
+
+
+def decode_batch(batch: Dict[str, torch.Tensor],
+                 size: int) -> Dict[str, torch.Tensor]:
+    """A batch of BC7 words (obs_words, next_obs_words, action) -> the
+    batch of images (obs, next_obs, action) the loss takes: one decode
+    call each for obs_words and next_obs_words."""
+    return {"obs": decode_obs_batch(batch["obs_words"], size, size),
+            "next_obs": decode_obs_batch(batch["next_obs_words"], size,
+                                         size),
+            "action": batch["action"]}
+
+
+def make_train_step(dcfg: D.DynamicsConfig, optimizer,
+                    compressed_obs: bool = False):
+    """step(params, batch) -> (params, loss): one AdamW step of
+    `optimizer`; with compressed_obs the batch carries obs_words and
+    next_obs_words, decoded on the device first (decode_batch)."""
+    if not compressed_obs:
+        def step(params, batch):
+            return D.train_step(params, optimizer, batch, dcfg)
+        return step
+
+    def visual_step(params, batch):
+        return D.train_step(params, optimizer,
+                            decode_batch(batch, dcfg.image_size), dcfg)
+
+    return visual_step
+
+
+def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
+          env=None, device="cuda"):
+    """Run the training loop on `device` (the card unless device="cpu");
+    returns (params, optimizer, last_loss).
+
+    Resumes from cfg.checkpoint_dir/latest if present."""
+    device = resolve_device(device)
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError("a training mesh needs the multi-GPU "
+                                  "layer, which is not ported yet")
+    dcfg = cfg.dynamics
+    env = env or SyntheticVisualEnv(dcfg, cfg.seed,
+                                    compressed=cfg.compressed_obs)
+    metrics = metrics or MetricsLogger()
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    params = D.init_params(dcfg, generator, device)
+    optimizer = D.make_optimizer(params, cfg.lr)
+    start_step = 0
+
+    ckpt_path = (Path(cfg.checkpoint_dir) / "latest"
+                 if cfg.checkpoint_dir else None)
+    if ckpt_path is not None and ckpt_path.exists():
+        state = ckpt.restore(str(ckpt_path), map_location="cpu")
+        with torch.no_grad():
+            for p, saved in zip(D.param_leaves(params),
+                                D.param_leaves(state["params"])):
+                p.copy_(saved)
+        optimizer.load_state_dict(state["opt_state"])
+        start_step = int(state["step"])
+
+    step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs)
+    loss = torch.zeros(())
+    for step in range(start_step, cfg.n_steps):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, step]))
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in env.sample_batch(rng, cfg.batch_size).items()}
+        params, loss = step_fn(params, batch)
+        if step % 10 == 0 or step == cfg.n_steps - 1:
+            metrics.log(step, loss=float(loss))
+        if (ckpt_path is not None and cfg.checkpoint_every
+                and (step + 1) % cfg.checkpoint_every == 0):
+            ckpt_path.parent.mkdir(parents=True, exist_ok=True)
+            ckpt.save(str(ckpt_path), ckpt.controller_state(
+                params, optimizer.state_dict(), torch.zeros((1,)),
+                generator.get_state(), step + 1))
+    return params, optimizer, float(loss)

@@ -406,7 +406,13 @@ def test_port_imports_no_jax():
         "    detex_tpu_torch.__path__, 'detex_tpu_torch.')]\n"
         "assert {'detex_tpu_torch.engine', 'detex_tpu_torch.tools.mxu_probe',\n"
         "        'detex_tpu_torch.tools.interleave_probe',\n"
-        "        'detex_tpu_torch.tools.profile_sections'} <= set(names)\n"
+        "        'detex_tpu_torch.tools.profile_sections',\n"
+        "        'detex_tpu_torch.mpc.ilqr', 'detex_tpu_torch.mpc.parallel_lqr',\n"
+        "        'detex_tpu_torch.mpc.train_loop', 'detex_tpu_torch.cli.train',\n"
+        "        'detex_tpu_torch.utils.guards',\n"
+        "        'detex_tpu_torch.utils.checkpoint',\n"
+        "        'detex_tpu_torch.utils.metrics',\n"
+        "        'detex_tpu_torch.ops.bptc_encode'} <= set(names)\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"

@@ -24,6 +24,7 @@ import torch
 import __graft_entry__ as graft
 from detex_tpu_torch import entry as tentry
 from detex_tpu_torch.mpc import dynamics as TD
+from detex_tpu_torch.mpc import mppi as TM
 from detex_tpu_torch.mpc import runtime as TR
 from detex_tpu_torch.ops import bptc
 
@@ -151,15 +152,90 @@ def test_controller_serves_requests_on_cpu():
     assert bptc.KERNEL_LAUNCHES == launches
 
 
-def test_controller_rejects_ilqr():
-    cfg = dataclasses.replace(tentry._small_cfg(), n_ilqr_iterations=1)
-    params = TD.init_params(cfg.dynamics, torch.Generator().manual_seed(0))
-    goal = torch.zeros(cfg.dynamics.latent_dim)
-    with pytest.raises(NotImplementedError):
-        TR.Controller(params, goal, cfg)
-    with pytest.raises(NotImplementedError):
-        TR.control_step(params, torch.zeros(16, 8), None,
-                        torch.zeros((64, 4), dtype=torch.int32), goal, cfg)
+def test_unpack_rgba8_images_parity(jx):
+    packed = _obs_words(3 * 8 * 8 * 4, 5).reshape(3, 64, 16)
+    want = jx.JR.unpack_rgba8_images(jx.jnp.asarray(packed), 32, 32)
+    got = TR.unpack_rgba8_images(torch.from_numpy(packed), 32, 32)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (3, 32, 32, 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for b in range(3):      # each image as the unbatched unpack gives it
+        np.testing.assert_array_equal(
+            got[b].numpy(),
+            TR.unpack_rgba8_image(torch.from_numpy(packed[b]), 32, 32)
+            .numpy())
+
+
+@pytest.mark.parametrize("size", [16, 32])
+def test_decode_obs_batch_parity(jx, size):
+    """Bit-exact to JAX's, invalid blocks included, with one decode call
+    for the whole batch."""
+    nb = (size // 4) ** 2
+    words = _obs_words(4 * nb, 6 + size).reshape(4, nb, 4)
+    words[1, :3, 0] &= ~0xFF
+    want = jx.jax.jit(jx.JR.decode_obs_batch, static_argnums=(1, 2))(
+        jx.jnp.asarray(words), size, size)
+    calls = []
+    decode = bptc.decode_bptc
+
+    def counted(w, *a):
+        calls.append(tuple(w.shape))
+        return decode(w, *a)
+
+    bptc.decode_bptc = counted
+    try:
+        got = TR.decode_obs_batch(torch.from_numpy(words), size, size)
+    finally:
+        bptc.decode_bptc = decode
+    assert calls == [(4 * nb, 4)]
+    assert got.dtype == torch.int32 and tuple(got.shape) == (4, size, size, 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _pipeline_cfg():
+    """tests/test_mpc.py's pipelined-controller configuration."""
+    dcfg = TD.DynamicsConfig(image_size=16, conv_features=(8, 16),
+                             latent_dim=16, action_dim=4, hidden_dim=32)
+    return TR.ControllerConfig(
+        dynamics=dcfg, mppi=TM.MPPIConfig(n_rollouts=32, horizon=4,
+                                          action_dim=4))
+
+
+def _pipelined_vs_sync(cfg, device, n=4):
+    """PipelinedController returns the synchronous controller's actions
+    with exactly one step of lag (the port's copy of tests/test_mpc.py's
+    test)."""
+    params = TD.init_params(cfg.dynamics,
+                            torch.Generator(device=device).manual_seed(0),
+                            device)
+    goal = torch.zeros(cfg.dynamics.latent_dim, device=device)
+    obs = [_obs_words((cfg.dynamics.image_size // 4) ** 2, 40 + i)
+           for i in range(n)]
+    sync = TR.Controller(params, goal, cfg, seed=7, device=device)
+    pipe = TR.PipelinedController(params, goal, cfg, seed=7, device=device)
+    sync_actions = [sync.step(o) for o in obs]
+    pipe_actions = [pipe.step(o) for o in obs]
+    assert pipe_actions[0] is None
+    return sync_actions, pipe_actions, pipe
+
+
+def test_pipelined_controller_matches_synchronous():
+    sync_actions, pipe_actions, pipe = _pipelined_vs_sync(_pipeline_cfg(),
+                                                          "cpu")
+    for t in range(1, len(sync_actions)):
+        np.testing.assert_array_equal(pipe_actions[t], sync_actions[t - 1])
+    np.testing.assert_array_equal(pipe.flush(), sync_actions[-1])
+    assert pipe.flush() is None
+    # Each returned action is the caller's own copy.
+    assert pipe_actions[1] is not pipe_actions[3]
+    assert not np.shares_memory(pipe_actions[1], pipe_actions[3])
+
+
+def test_pipelined_controller_with_ilqr():
+    cfg = dataclasses.replace(_pipeline_cfg(), n_ilqr_iterations=1)
+    sync_actions, pipe_actions, pipe = _pipelined_vs_sync(cfg, "cpu", 3)
+    for t in range(1, 3):
+        np.testing.assert_array_equal(pipe_actions[t], sync_actions[t - 1])
+    assert "ilqr_cost" in pipe.diag
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -170,8 +246,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tentry.entry()
     cfg = tentry._small_cfg()
     params = TD.init_params(cfg.dynamics, torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        TR.Controller(params, torch.zeros(cfg.dynamics.latent_dim), cfg)
+    for cls in (TR.Controller, TR.PipelinedController):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(params, torch.zeros(cfg.dynamics.latent_dim), cfg)
 
 
 def test_entry_runs():
@@ -221,3 +298,57 @@ def test_cuda_control_step_kernel_vs_plain_decode(cuda, monkeypatch):
     out_p = fn(*args, eps=eps)
     for a, b in zip(out_k[:2], out_p[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ilqr", [0, 1])
+def test_cuda_pipelined_controller_matches_synchronous(cuda, ilqr):
+    """On the card: the pipelined actions equal the synchronous ones one
+    step later, and no step waits on the card while it enqueues (sync
+    debug mode raises on any synchronising call), with iLQR too."""
+    cfg = dataclasses.replace(_pipeline_cfg(), n_ilqr_iterations=ilqr)
+    sync_actions, pipe_actions, pipe = _pipelined_vs_sync(cfg, cuda, 5)
+    for t in range(1, 5):
+        np.testing.assert_allclose(pipe_actions[t], sync_actions[t - 1],
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_allclose(pipe.flush(), sync_actions[-1], rtol=0,
+                               atol=1e-6)
+    words = _obs_words((cfg.dynamics.image_size // 4) ** 2, 60)
+    pipe.step(words)
+    torch.cuda.synchronize()
+    pipe._pending = None            # nothing for the next step to wait on
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert pipe.step(words) is None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pipe.flush() is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [False, True])
+def test_cuda_ilqr_step_finite(cuda, parallel):
+    """iLQR steps on the card: finite actions and costs, one BC7 launch a
+    step.  The refined plan is not clipped to the MPPI action bounds (nor
+    is it in the JAX package), so the bounds are not held."""
+    cfg = dataclasses.replace(tentry._small_cfg(), n_ilqr_iterations=2,
+                              ilqr_parallel=parallel)
+    ctl = _controller(cfg, cuda)
+    launches = bptc.KERNEL_LAUNCHES
+    for i in range(3):
+        action = ctl.step(_obs_words((cfg.dynamics.image_size // 4) ** 2,
+                                     70 + i))
+        assert action.shape == (cfg.mppi.action_dim,)
+        assert np.isfinite(action).all()
+        assert all(np.isfinite(float(v)) for v in ctl.diag.values())
+    assert bptc.KERNEL_LAUNCHES == launches + 3
+
+
+@pytest.mark.cuda
+def test_cuda_decode_obs_batch_one_launch(cuda):
+    words = torch.from_numpy(_obs_words(8 * 256, 80).reshape(8, 256, 4))
+    want = TR.decode_obs_batch(words, 64, 64)
+    launches = bptc.KERNEL_LAUNCHES
+    got = TR.decode_obs_batch(words.to(cuda), 64, 64)
+    assert bptc.KERNEL_LAUNCHES == launches + 1
+    assert torch.equal(got.cpu(), want)

@@ -295,3 +295,60 @@ def test_native_sources_and_tables_are_copies():
     assert filecmp.cmp(_REPO / "detex_tpu_torch" / "data" / "bptc_tables.npz",
                        _REPO / "detex_tpu" / "data" / "bptc_tables.npz",
                        shallow=False)
+
+
+# --- bptc_encode, metrics ---------------------------------------------------------
+
+
+def test_bptc_encode_copy():
+    """The synthetic-data encoders of the training envs: the same tables,
+    and the same words and predicted values for the same images; the
+    port's BC7 decode of its words gives the predicted values."""
+    import torch
+
+    import detex_tpu.ops.bptc_encode as JE
+    import detex_tpu_torch.ops.bptc_encode as PE
+    from detex_tpu_torch.ops import bptc
+
+    assert sorted(_values(PE)) == sorted(_values(JE))
+    for name, v in _values(JE).items():
+        np.testing.assert_array_equal(getattr(PE, name), v)
+    rng = np.random.default_rng(12)
+    for size in (4, 16, 64):
+        img = rng.integers(0, 256, (size, size), np.uint8)
+        words = PE.encode_bc7_mode6_gray(img)
+        np.testing.assert_array_equal(words, JE.encode_bc7_mode6_gray(img))
+        pix, valid = bptc.decode_bptc(torch.from_numpy(words))
+        assert bool(valid.all())
+        blocks = img.reshape(size // 4, 4, size // 4, 4) \
+            .transpose(0, 2, 1, 3).reshape(-1, 16)
+        idx = (blocks >> 4).astype(np.int64)
+        idx[:, 0] = np.minimum(idx[:, 0], 7)
+        gray = PE.decode_mode6_gray_value(idx)
+        np.testing.assert_array_equal(gray, JE.decode_mode6_gray_value(idx))
+        np.testing.assert_array_equal(pix.numpy() & 0xFF, gray)
+    rgba = rng.integers(0, 256, (37, 4), np.uint8)
+    np.testing.assert_array_equal(PE.encode_bc7_mode5_solid(rgba),
+                                  JE.encode_bc7_mode5_solid(rgba))
+    np.testing.assert_array_equal(PE.decode_mode5_solid_value(rgba),
+                                  JE.decode_mode5_solid_value(rgba))
+
+
+def test_metrics_copy():
+    import io
+    import json
+
+    import detex_tpu.utils.metrics as JM
+    import detex_tpu_torch.utils.metrics as PM
+
+    lines = []
+    for mod in (JM, PM):
+        buf = io.StringIO()
+        log = mod.MetricsLogger(buf)
+        with mod.Timer() as t:
+            pass
+        log.log(3, loss=np.float32(1.5), name="x", step_s=t.elapsed_s)
+        rec = json.loads(buf.getvalue())
+        assert rec.pop("t") >= 0 and rec.pop("step_s") >= 0
+        lines.append(rec)
+    assert lines[0] == lines[1] == {"step": 3, "loss": 1.5, "name": "x"}

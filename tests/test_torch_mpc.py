@@ -263,10 +263,31 @@ def test_receding_horizon_shift():
 def test_config_defaults_match_jax():
     """The full-width slice is ControllerConfig()'s defaults on both
     sides (64x64 obs, features 32-256, latent 128, hidden 512, 8192 x 32
-    rollouts)."""
+    rollouts); ControllerConfig, ILQRConfig and TrainConfig agree field for
+    field but for the port's missing rollout_axis and the dtype's type."""
+    from detex_tpu.mpc import ilqr as JI
+    from detex_tpu.mpc import train_loop as JT
+    from detex_tpu_torch.mpc import ilqr as TI
+    from detex_tpu_torch.mpc import train_loop as TT
+
+    def dtype_name(dt):
+        return str(dt).split(".")[-1] if isinstance(dt, torch.dtype) \
+            else np.dtype(dt).name
+
+    def plain(cfg):
+        d = dataclasses.asdict(cfg)
+        for part in [d] + [v for v in d.values() if isinstance(v, dict)]:
+            if "compute_dtype" in part:
+                part["compute_dtype"] = dtype_name(part["compute_dtype"])
+        return d
+
     for jc, tc in ((JD.DynamicsConfig(), TD.DynamicsConfig()),
-                   (JM.MPPIConfig(), TM.MPPIConfig())):
-        jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
-        jd.pop("compute_dtype", None)
-        assert td.pop("compute_dtype", torch.bfloat16) == torch.bfloat16
-        assert jd == td
+                   (JM.MPPIConfig(), TM.MPPIConfig()),
+                   (JI.ILQRConfig(), TI.ILQRConfig()),
+                   (JT.TrainConfig(), TT.TrainConfig())):
+        assert plain(jc) == plain(tc), type(tc).__name__
+    jd, td = plain(JR.ControllerConfig()), plain(TR.ControllerConfig())
+    assert jd.pop("rollout_axis") is None
+    assert jd == td
+    assert list(jd) == list(td)            # the same fields, in order
+    assert TD.DynamicsConfig().compute_dtype == torch.bfloat16
