@@ -11,9 +11,11 @@ all at once) and drives the port's three paths:
     full-width control step (ControllerConfig(): 64x64 BC7 observation,
     8192 x 32 MPPI rollouts, bf16) by a Controller;
   * the rest of the control loop at the same width: 12 steps with 2 iLQR
-    iterations (sequential backward), the parallel-LQT backward's gains
-    held to the sequential one's on one float32 linearisation, 5 steps
-    with it; a PipelinedController held to a Controller one step later;
+    iterations (sequential backward) and 5 with the parallel-LQT backward;
+    the parallel gains held to the sequential ones on one linearisation
+    (float32 on damped dynamics, float64 on the random weights); iLQR on
+    the card held to the port's on the CPU, and 3 steps served, on damped
+    dynamics toward a random goal; a PipelinedController held to a Controller one step later;
     20 dynamics training steps on BC7-compressed observations (batch 64,
     two BC7 launches a step; the kernel's decode bit-equal to the plain
     version's and one step's loss within rtol 1e-5), then 3 iLQR steps
@@ -552,18 +554,26 @@ def _serve(ctl, requests, mcfg, bounds: bool = True) -> tuple:
     return step_ms, actions
 
 
-def _gains_check(params, cfg, words, us) -> None:
-    """The parallel-LQT backward's gains against the sequential
-    backward's on one float32 linearisation at the full width, along the
-    plan `us`.  Random weights make the latent dynamics expand about 2.4x
-    a step, so the value matrices grow without bound and the two float32
-    recursions part; the check therefore damps the dynamics' output layer
-    by 0.05 (as tests/test_torch_mpc.py does) and prints the undamped
-    reading beside it."""
-    dcfg = dataclasses.replace(cfg.dynamics, compute_dtype=torch.float32)
+def _damped(params, damp: float = 0.05):
+    """params with the dynamics' output layer scaled by `damp`.  Random
+    weights make the latent dynamics expand about 2.4x a step, so a plan's
+    cost grows without bound over the horizon; damped by 0.05 (as the CPU
+    tests damp theirs) a trajectory stays bounded and iLQR's refined cost
+    means something."""
+    p = {part: {name: dict(layer) for name, layer in layers.items()}
+         for part, layers in params.items()}
+    p["dyn"]["out"]["w"] = params["dyn"]["out"]["w"] * damp
+    return p
+
+
+def _ilqr_problem(params, dcfg, cfg, words, goal):
+    """(dyn1, cost1, terminal, z0) of the control step's iLQR on one
+    observation, with `params` on their own device."""
     img = R.decode_obs(words, dcfg.image_size, dcfg.image_size)
-    goal = torch.zeros(dcfg.latent_dim, device="cuda")
     cost = R.latent_cost_fn(goal, cfg)
+
+    def dyn1(x, u):
+        return D.dynamics_apply(params, x[None], u[None], dcfg)[0]
 
     def cost1(x, u, t):
         return cost(x[None], u[None], t)[0]
@@ -571,32 +581,113 @@ def _gains_check(params, cfg, words, us) -> None:
     def terminal(x):
         return x.new_zeros(())
 
-    reg = torch.tensor(ILQR.ILQRConfig().reg_init, device="cuda")
+    z0 = D.encode(params, img[None].to(torch.uint8), dcfg)[0]
+    return dyn1, cost1, terminal, z0
+
+
+def _rel_err(a, b) -> tuple:
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale, scale
+
+
+def _gains_check(params, cfg, words, us) -> None:
+    """The parallel-LQT backward's gains against the sequential
+    backward's on one float32 linearisation at the full width, along the
+    plan `us`.  On the damped dynamics (_damped) the float32 gains are held
+    within rtol 1e-4.  On the random weights themselves the value
+    matrices grow without bound and the two float32 recursions part; the
+    same linearisation, cast to float64, is the witness that the scan is
+    right there: at reg 0 both solve the same Riccati recursion and are
+    held within 1e-6 of the largest gain.  At reg_init they differ by
+    construction, as in the JAX package (the sequential pass propagates
+    the value with the unregularised quu, the LQT with R + reg I): that
+    reading is printed."""
+    dcfg = dataclasses.replace(cfg.dynamics, compute_dtype=torch.float32)
+    goal = torch.zeros(dcfg.latent_dim, device="cuda")
+    reg_init = ILQR.ILQRConfig().reg_init
     for damp in (0.05, 1.0):
-        p = {part: {name: dict(layer) for name, layer in layers.items()}
-             for part, layers in params.items()}
-        p["dyn"]["out"]["w"] = params["dyn"]["out"]["w"] * damp
-
-        def dyn1(x, u, p=p):
-            return D.dynamics_apply(p, x[None], u[None], dcfg)[0]
-
-        z0 = D.encode(p, img[None].to(torch.uint8), dcfg)[0]
+        dyn1, cost1, terminal, z0 = _ilqr_problem(
+            _damped(params, damp), dcfg, cfg, words, goal)
         xs = ILQR._rollout(dyn1, z0, us)
         lin = ILQR.linearize(dyn1, cost1, terminal, xs, us)
-        seq = ILQR.backward(*lin, reg)
-        par = ILQR.backward_parallel(*lin, reg)
-        errs = []
-        for name, a, b in zip(("k", "K"), par, seq):
-            scale = float(b.abs().max())
-            err = float((a - b).abs().max()) / scale
-            errs.append(f"{name}: max |par - seq| / max |seq| {err:.3g} "
-                        f"(max |seq| {scale:.3g})")
+        runs = [(torch.float32, reg_init)]
+        if damp == 1.0:
+            runs += [(torch.float64, 0.0), (torch.float64, reg_init)]
+        for dtype, reg_v in runs:
+            lin_d = [d.to(dtype) for d in lin]
+            reg = torch.tensor(reg_v, dtype=dtype, device="cuda")
+            seq = ILQR.backward(*lin_d, reg)
+            par = ILQR.backward_parallel(*lin_d, reg)
+            errs, worst = [], 0.0
+            for name, a, b in zip(("k", "K"), par, seq):
+                err, scale = _rel_err(a, b)
+                worst = max(worst, err)
+                errs.append(f"{name}: max |par - seq| / max |seq| {err:.3g} "
+                            f"(max |seq| {scale:.3g})")
+                if damp != 1.0:
+                    torch.testing.assert_close(a, b, rtol=1e-4,
+                                               atol=1e-4 * scale)
+            checked = " (not checked)"
             if damp != 1.0:
-                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
-        print(f"ilqr gains, float32, output layer x {damp}, |x_H| "
-              f"{float(xs[-1].norm()):.4g}: {'; '.join(errs)}"
-              + (" (rtol 1e-4, atol 1e-4 max |seq|: ok)" if damp != 1.0
-                 else " (not checked)"))
+                checked = " (rtol 1e-4, atol 1e-4 max |seq|: ok)"
+            elif dtype == torch.float64 and reg_v == 0.0:
+                if not worst <= 1e-6:
+                    raise AssertionError(
+                        f"float64 gains at reg 0 part by {worst:.3g} of the "
+                        "largest gain (limit 1e-6)")
+                checked = " (within 1e-6 of max |seq|: ok)"
+            print(f"ilqr gains, {str(dtype)[6:]}, reg {reg_v:g}, output "
+                  f"layer x {damp}, |x_H| {float(xs[-1].norm()):.4g}: "
+                  f"{'; '.join(errs)}{checked}")
+
+
+def _ilqr_reference_check(params, cfg, words, rng) -> None:
+    """iLQR refinement on the card against the port's own on the CPU
+    (which the CPU tests hold to the JAX package's), at the full width in
+    float32, on the damped dynamics with a random latent goal and plan,
+    both backwards; held at the CPU tests' ilqr_solve tolerances (xs, us,
+    total cost rtol 1e-4, atol 1e-5), and the refinement must lower the
+    plan's cost."""
+    dcfg = dataclasses.replace(cfg.dynamics, compute_dtype=torch.float32)
+    mcfg = cfg.mppi
+    p = _damped(params)
+    goal = torch.from_numpy((0.5 * rng.standard_normal(dcfg.latent_dim))
+                            .astype(np.float32))
+    us0 = torch.from_numpy(rng.uniform(
+        -0.5, 0.5, (mcfg.horizon, mcfg.action_dim)).astype(np.float32))
+    p_cpu = {part: {name: {k: v.cpu() for k, v in layer.items()}
+                    for name, layer in layers.items()}
+             for part, layers in p.items()}
+    for parallel in (False, True):
+        icfg = ILQR.ILQRConfig(n_iterations=cfg.n_ilqr_iterations,
+                               parallel=parallel)
+        out = []
+        for dev, prm in (("cuda", p), ("cpu", p_cpu)):
+            dyn1, cost1, terminal, z0 = _ilqr_problem(
+                prm, dcfg, cfg, words.to(dev), goal.to(dev))
+            if out:
+                z0 = out[0][3].cpu()    # the card's start on both sides
+            start = ILQR.trajectory_cost(
+                cost1, terminal, ILQR._rollout(dyn1, z0, us0.to(dev)),
+                us0.to(dev))
+            xs, us, total = ILQR.ilqr_solve(dyn1, cost1, terminal, z0,
+                                            us0.to(dev), icfg)
+            out.append((xs, us, total, z0, start))
+        (xs_c, us_c, tot_c, _, start_c), (xs_h, us_h, tot_h, _, _) = out
+        for name, a, b in (("xs", xs_c, xs_h), ("us", us_c, us_h),
+                           ("total", tot_c, tot_h)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+        if not float(tot_c) < float(start_c):
+            raise AssertionError(f"iLQR did not lower the cost: "
+                                 f"{float(start_c)} -> {float(tot_c)}")
+        print(f"ilqr {'parallel LQT' if parallel else 'sequential'}, "
+              f"float32, output layer x 0.05, random goal: cost "
+              f"{float(start_c):.6g} -> {float(tot_c):.6g} on the card, "
+              f"{float(tot_h):.6g} on the CPU; max |us card - CPU| "
+              f"{float((us_c.cpu() - us_h).abs().max()):.3g}, max |xs| "
+              f"diff {float((xs_c.cpu() - xs_h).abs().max()):.3g} "
+              f"(rtol 1e-4, atol 1e-5: ok)")
 
 
 def _ilqr_stages(ctl, words) -> str:
@@ -672,6 +763,26 @@ def _ilqr_path(rng, smi: str, mppi_median: float) -> int:
     with torch.no_grad():
         _gains_check(params, cfg, torch.from_numpy(requests[0]).cuda(),
                      ctl.nominal)
+        _ilqr_reference_check(params, cfg,
+                              torch.from_numpy(requests[1]).cuda(), rng)
+    # Served on the damped dynamics toward a random goal, where the
+    # refined cost is well conditioned: each step's ilqr_cost must lie
+    # below MPPI's best sampled cost.
+    goal = torch.from_numpy((0.5 * rng.standard_normal(dcfg.latent_dim))
+                            .astype(np.float32)).cuda()
+    dctl = R.Controller(_damped(params), goal, cfg, seed=_SEED,
+                        device="cuda")
+    costs = []
+    for words in requests[:3]:
+        dctl.step(words)
+        costs.append((float(dctl.diag["ilqr_cost"]),
+                      float(dctl.diag["min_cost"])))
+    if not all(np.isfinite(c).all() and c[0] < c[1] for c in costs):
+        raise AssertionError(f"damped iLQR steps: (ilqr_cost, min_cost) "
+                             f"{costs}")
+    print(f"ilqr, output layer x 0.05, random goal, 3 steps "
+          f"({dcfg.compute_dtype}): (ilqr_cost, MPPI min_cost) "
+          f"{', '.join(f'({a:.6g}, {b:.6g})' for a, b in costs)}")
     print(f"ilqr stages, host ms with the card synchronised around each "
           f"(one step, 2 iterations): sequential: "
           f"{_ilqr_stages(ctl, requests[0])}; parallel LQT: "
@@ -1930,7 +2041,7 @@ def main() -> None:
         "name": "bc7_decode", "route": "cuda",
         "source": "detex_tpu_torch/csrc/bc7.cu",
         "replaces": "detex_tpu/ops/pallas/bptc_pallas.py:240",
-        "launches": sum(bc7_paths.values()),
+        "launches": bc7_paths["control step"],
         "launches_by_path": bc7_paths,
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],

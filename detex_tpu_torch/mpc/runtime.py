@@ -31,7 +31,7 @@ from detex_tpu_torch.ops import bptc
 class ControllerConfig:
     dynamics: D.DynamicsConfig = D.DynamicsConfig()
     mppi: mppi_mod.MPPIConfig = mppi_mod.MPPIConfig()
-    obs_format: int = F.BPTC
+    obs_format: int = F.BPTC       # the only one decoded: BC7
     n_ilqr_iterations: int = 0     # 0 disables iLQR refinement
     ilqr_parallel: bool = False    # log-depth parallel-LQT backward
     goal_weight: float = 1.0
@@ -74,6 +74,12 @@ def decode_obs(words: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return decode_obs_batch(words[None], height, width)[0]
 
 
+def _check_obs_format(cfg: ControllerConfig) -> None:
+    if cfg.obs_format != F.BPTC:
+        raise ValueError(f"observations are decoded as BC7 (F.BPTC); "
+                         f"obs_format {cfg.obs_format} is not supported")
+
+
 def latent_cost_fn(goal_z: torch.Tensor, cfg: ControllerConfig):
     """Quadratic latent-goal cost for the planner."""
     def cost(z, u, t):
@@ -89,7 +95,9 @@ def control_step(params, nominal, generator, obs_words, goal_z,
     diagnostics: 0-d tensors, ilqr_cost among them with iLQR).
 
     The MPPI noise comes from `generator` unless `eps` (K, H, A) is
-    given."""
+    given.  Observations are BC7 words: an obs_format other than F.BPTC
+    raises."""
+    _check_obs_format(cfg)
     dcfg = cfg.dynamics
     img = decode_obs(obs_words, dcfg.image_size, dcfg.image_size)
     z0 = D.encode(params, img[None].to(torch.uint8), dcfg)[0]
@@ -130,6 +138,7 @@ class Controller:
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
                  seed: int = 0, device="cuda"):
+        _check_obs_format(cfg)
         self.device = resolve_device(device)
         self.params = params
         self.goal_z = goal_z.to(self.device)

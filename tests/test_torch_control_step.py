@@ -23,6 +23,7 @@ import torch
 
 import __graft_entry__ as graft
 from detex_tpu_torch import entry as tentry
+from detex_tpu_torch import formats as F
 from detex_tpu_torch.mpc import dynamics as TD
 from detex_tpu_torch.mpc import mppi as TM
 from detex_tpu_torch.mpc import runtime as TR
@@ -251,6 +252,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
             cls(params, torch.zeros(cfg.dynamics.latent_dim), cfg)
 
 
+@pytest.mark.parametrize("fmt", ["BC1", "ETC2_EAC", "BPTC_FLOAT"])
+def test_obs_format_other_than_bc7_raises(fmt):
+    """Observations are decoded as BC7 only: any other obs_format raises
+    in control_step and in the controllers rather than decode BC7."""
+    cfg = dataclasses.replace(tentry._small_cfg(), obs_format=getattr(F, fmt))
+    params = TD.init_params(cfg.dynamics, torch.Generator().manual_seed(0))
+    goal = torch.zeros(cfg.dynamics.latent_dim)
+    words = torch.from_numpy(_obs_words(
+        (cfg.dynamics.image_size // 4) ** 2, 0))
+    nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim))
+    with pytest.raises(ValueError, match="obs_format"):
+        TR.control_step(params, nominal, torch.Generator(), words, goal, cfg)
+    for cls in (TR.Controller, TR.PipelinedController):
+        with pytest.raises(ValueError, match="obs_format"):
+            cls(params, goal, cfg, device="cpu")
+
+
 def test_entry_runs():
     fn, args = tentry.entry("cpu")
     action, shifted, diag = fn(*args)
@@ -342,6 +360,67 @@ def test_cuda_ilqr_step_finite(cuda, parallel):
         assert np.isfinite(action).all()
         assert all(np.isfinite(float(v)) for v in ctl.diag.values())
     assert bptc.KERNEL_LAUNCHES == launches + 3
+
+
+def _ilqr_step_inputs(parallel, seed):
+    """A small float32 iLQR control step (latent 16, H 8, 2 iterations;
+    the shapes of tests/test_torch_ilqr.py) on params whose output layer
+    is damped by 0.05, so that the refined cost is well conditioned, and
+    its words, goal, nominal and injected noise, all on the CPU."""
+    cfg = TR.ControllerConfig(
+        dynamics=TD.DynamicsConfig(
+            image_size=16, conv_features=(8, 16), latent_dim=16,
+            action_dim=4, hidden_dim=32, compute_dtype=torch.float32),
+        mppi=TM.MPPIConfig(n_rollouts=64, horizon=8, action_dim=4),
+        n_ilqr_iterations=2, ilqr_parallel=parallel)
+    params = TD.init_params(cfg.dynamics,
+                            torch.Generator().manual_seed(seed))
+    params["dyn"]["out"]["w"] = params["dyn"]["out"]["w"] * 0.05
+    rng = np.random.default_rng(300 + seed)
+    mcfg = cfg.mppi
+    words = torch.from_numpy(_obs_words(16, 310 + seed))
+    goal = torch.from_numpy((0.5 * rng.standard_normal(16))
+                            .astype(np.float32))
+    nominal = torch.from_numpy(rng.uniform(
+        -0.5, 0.5, (mcfg.horizon, mcfg.action_dim)).astype(np.float32))
+    eps = torch.from_numpy((rng.standard_normal(
+        (mcfg.n_rollouts, mcfg.horizon, mcfg.action_dim))
+        * mcfg.noise_sigma).astype(np.float32))
+    return cfg, params, (nominal, words, goal, eps)
+
+
+def _to(params, device):
+    return {part: {name: {k: v.to(device) for k, v in layer.items()}
+                   for name, layer in layers.items()}
+            for part, layers in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("parallel", [False, True])
+def test_cuda_ilqr_step_matches_cpu(cuda, parallel, seed):
+    """The iLQR control step on the card against the port's CPU step
+    (which tests/test_torch_ilqr.py holds to JAX's) on the same damped
+    params, words, goal, nominal and noise, at the CPU tests' tolerances:
+    action and shifted nominal atol 1e-5, ilqr_cost and the MPPI costs
+    rtol 1e-5; and the refinement lowered the cost below MPPI's best."""
+    cfg, params, (nominal, words, goal, eps) = _ilqr_step_inputs(parallel,
+                                                                  seed)
+    with torch.no_grad():
+        want = TR.control_step(params, nominal, None, words, goal, cfg,
+                               eps=eps)
+        got = TR.control_step(_to(params, cuda), nominal.to(cuda), None,
+                              words.to(cuda), goal.to(cuda), cfg,
+                              eps=eps.to(cuda))
+    (ta, ts, td), (wa, ws, wd) = got, want
+    assert float(td["ilqr_cost"]) < float(td["min_cost"])   # it refined
+    np.testing.assert_allclose(ta.cpu().numpy(), wa.numpy(), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.cpu().numpy(), ws.numpy(), rtol=0,
+                               atol=1e-5)
+    for k in ("ilqr_cost", "min_cost", "mean_cost", "ess"):
+        np.testing.assert_allclose(float(td[k]), float(wd[k]), rtol=1e-5,
+                                   err_msg=k)
 
 
 @pytest.mark.cuda

@@ -242,6 +242,43 @@ def test_parallel_backward_parity_on_linearisation(reg):
         _close_scaled(bigks_p.numpy(), bigks.numpy())
 
 
+@pytest.mark.parametrize("horizon", [8, 32])
+def test_parallel_backward_matches_sequential_undamped_f64(horizon):
+    """On undamped random latent dynamics (latent 32, hidden 64) the
+    trajectory grows without bound and the value matrices with it, so the
+    float32 recursions part; the same linearisation in float64 at reg 0,
+    where both backwards solve the same Riccati recursion, gives the same
+    gains within 1e-9 of the largest one, ill-conditioned elements and
+    all."""
+    dcfg = TD.DynamicsConfig(image_size=16, conv_features=(8, 16),
+                             latent_dim=32, action_dim=4, hidden_dim=64,
+                             compute_dtype=torch.float32)
+    params = TD.init_params(dcfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(60)
+    x0 = torch.from_numpy(rng.standard_normal(32).astype(np.float32))
+    us = torch.from_numpy(rng.uniform(-0.5, 0.5, (horizon, 4))
+                          .astype(np.float32))
+    cost = TR.latent_cost_fn(torch.zeros(32), TR.ControllerConfig())
+
+    def dyn(x, u):
+        return TD.dynamics_apply(params, x[None], u[None], dcfg)[0]
+
+    def cost1(x, u, t):
+        return cost(x[None], u[None], t)[0]
+
+    with torch.no_grad():
+        xs = TI._rollout(dyn, x0, us)
+        lin = [d.double() for d in TI.linearize(dyn, cost1, _tterm, xs, us)]
+        reg = torch.zeros((), dtype=torch.float64)
+        seq = TI.backward(*lin, reg)
+        par = TI.backward_parallel(*lin, reg)
+    assert float(xs[-1].norm()) > 1e3            # the growth is real
+    for a, b in zip(par, seq):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-9 * float(b.abs().max()))
+
+
 # --- the float64 references of tests/test_parallel_lqr.py ----------------------
 
 
