@@ -20,6 +20,16 @@ all at once) and drives the port's three paths:
     two BC7 launches a step; the kernel's decode bit-equal to the plain
     version's and one step's loss within rtol 1e-5), then 3 iLQR steps
     served with the trained parameters; and the dtx-train CLI;
+  * the multi-device layer ("multi-device" phases): at one rank over NCCL
+    in this process, 5 full-width control steps sharded over "dp" held to
+    the unsharded Controller (atol 1e-6) and both timed by CUDA events,
+    decode_blocks_sharded for all 19 variants at 1,048,576 blocks
+    (bit-exact, no collective byte), the horizon-sharded LQT (H = 32, 128
+    states) and a (1, 1) train step; then 2 and 4 ranks spawned on the one
+    card over gloo (NCCL takes one rank per card): the sharded control
+    step flat over "dp" and over (2, 2) ("dcn", "ici"), the BC7 and BC6H
+    sharded decode, the sharded LQT, a (2, 2) dp x tp train step and
+    entry.dryrun_multichip, each held to the unsharded result on the card;
   * the texture engine: the BC1/BC1A, BC2/BC3, RGTC1 and RGTC2 (signed
     and unsigned) kernels, the ETC1/ETC2/ETC2 punchthrough, ETC2_EAC,
     EAC R11 and RG11 (signed and unsigned) kernels and the BC6H kernel
@@ -86,8 +96,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from detex_tpu_torch import _build, engine, hdr
+from detex_tpu_torch import _build, engine, entry, hdr
 from detex_tpu_torch import convert as C
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch import formats as F
@@ -96,10 +107,13 @@ from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.cli import train as cli_train
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import ilqr as ILQR
+from detex_tpu_torch.mpc import parallel_lqr as PL
 from detex_tpu_torch.mpc import runtime as R
 from detex_tpu_torch.mpc import train_loop as TL
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
+from detex_tpu_torch.parallel import launch
+from detex_tpu_torch.parallel import mesh as PM
 from detex_tpu_torch.texture import Texture
 from detex_tpu_torch.tools import interleave_probe as IP
 from detex_tpu_torch.tools import mxu_probe as MP
@@ -965,6 +979,357 @@ def _cli_train_path() -> int:
     if cli_train.main(["--steps", "5"]) != 0:
         raise AssertionError("dtx-train returned non-zero")
     return bptc.KERNEL_LAUNCHES
+
+
+# --- the multi-device layer: one rank over NCCL, two and four over gloo -----
+
+_MD_LQT = (32, 128, 8)      # H, state and control sizes of the sharded LQT
+_MD_DECODE_N = 65536        # blocks of the multi-rank decode check
+_MD_TIMEOUT = 300.0         # each spawn of ranks, start-up included
+# The multi-rank train step: the full-width model at float32 (the ranks'
+# tensor-parallel sums run in another order; float32 keeps the loss within
+# rtol 1e-5), batch 8 of 64x64 BC7 observations.
+_MD_TRAIN = TL.TrainConfig(dynamics=D.DynamicsConfig(
+    compute_dtype=torch.float32), batch_size=8, compressed_obs=True)
+
+
+def _md_lqt_problem() -> tuple:
+    """A contractive float32 LQT problem at H = 32 and 128 states on the
+    card (spectral radius about 0.95, so float32 keeps 1e-5 of the f64
+    value)."""
+    h, n, m = _MD_LQT
+    rng = np.random.default_rng([_SEED, h])
+    arrays = (0.95 * np.eye(n) + 0.05 / math.sqrt(n)
+              * rng.standard_normal((h, n, n)),
+              0.1 * rng.standard_normal((h, n, m)),
+              0.1 * rng.standard_normal((h, n)),
+              np.broadcast_to(np.eye(n), (h, n, n)),
+              rng.standard_normal((h, n)),
+              np.broadcast_to(np.eye(m), (h, m, m)),
+              rng.standard_normal((h, m)),
+              0.05 * rng.standard_normal((h, m, n)), 2.0 * np.eye(n),
+              rng.standard_normal(n))
+    return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
+                              device="cuda") for a in arrays)
+
+
+def _md_bytes() -> dict:
+    return {f"{op}/{axis}": v for (op, axis), v in
+            PM.COLLECTIVE_BYTES.items()}
+
+
+def _md_control(params, words, cfg, mesh=None):
+    """One full-width control step on the generator seed _SEED + 1: (action,
+    shifted nominal, host ms to the end of the step)."""
+    nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(_SEED + 1)
+    goal = torch.zeros(cfg.dynamics.latent_dim, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        action, shifted, _ = R.control_step(params, nominal, gen, words,
+                                            goal, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    return action.cpu(), shifted.cpu(), (time.perf_counter() - t0) * 1e3
+
+
+def _md_train_loss(batch, mesh=None) -> float:
+    """The first step's loss of the _MD_TRAIN model from seed _SEED's
+    parameters on `batch` (whole; cut to this rank's dp rows on a mesh)."""
+    dcfg = _MD_TRAIN.dynamics
+    params = D.init_params(dcfg, torch.Generator(device="cuda").manual_seed(
+        _SEED), "cuda")
+    if mesh is not None:
+        params = D.shard_params(params, mesh)
+        batch = {k: PM.shard_batch(v, mesh, "dp") for k, v in batch.items()}
+    step = TL.make_train_step(dcfg, D.make_optimizer(params), True, mesh)
+    return float(step(params, {k: torch.as_tensor(v).cuda()
+                               for k, v in batch.items()})[1])
+
+
+def _md_steps(params, words, cfg, mesh) -> tuple:
+    """_md_control 6 times (the first warms up the rank's CUDA libraries):
+    the last step's action and nominal, the median host ms of the last 5,
+    and the collective bytes of one step."""
+    runs = []
+    for _ in range(6):
+        PM.reset_collective_bytes()
+        runs.append(_md_control(params, words, cfg, mesh))
+    return (*runs[-1][:2], statistics.median(r[2] for r in runs[1:]),
+            _md_bytes())
+
+
+def _md_rank(rank: int, inputs: dict) -> dict:
+    """One rank of the spawned groups (gloo, every rank on card 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = dist.get_world_size()
+    cfg = R.ControllerConfig(rollout_axis="dp")
+    params = D.init_params(cfg.dynamics, torch.Generator(
+        device="cuda").manual_seed(_SEED), "cuda")
+    words = torch.as_tensor(inputs["words"], device="cuda")
+    out, launches = {}, {}
+    mesh = PM.make_mesh((n, 1), device="cuda")
+    bptc.KERNEL_LAUNCHES = 0
+    out["control"] = _md_steps(params, words, cfg, mesh)
+    launches["sharded control step"] = bptc.KERNEL_LAUNCHES
+    if n == 4:
+        hmesh = PM.make_mesh((2, 2), ("dcn", "ici"), device="cuda")
+        bptc.KERNEL_LAUNCHES = 0
+        out["hier"] = _md_steps(params, words, dataclasses.replace(
+            cfg, rollout_axis=("dcn", "ici")), hmesh)
+        launches["hierarchical (dcn, ici) control step"] = \
+            bptc.KERNEL_LAUNCHES
+    bptc.KERNEL_LAUNCHES = 0
+    out["decode"] = {fmt: tuple(t.cpu() for t in engine.decode_blocks_sharded(
+        fmt, torch.as_tensor(blocks, device="cuda"), mesh))
+        for fmt, blocks in inputs["blocks"].items()}
+    launches["sharded decode"] = bptc.KERNEL_LAUNCHES
+    sp = PM.make_mesh((n,), ("sp",), device="cuda")
+    out["lqt"] = tuple(t.cpu() for t in PL.lqt_backward_parallel_sharded(
+        *_md_lqt_problem(), mesh=sp, axis="sp"))
+    if n == 4:
+        bptc.KERNEL_LAUNCHES = 0
+        out["train_loss"] = _md_train_loss(
+            inputs["train_batch"], PM.make_mesh((2, 2), device="cuda"))
+        launches["dp x tp train step"] = bptc.KERNEL_LAUNCHES
+        bptc.KERNEL_LAUNCHES = 0
+        out["dryrun"] = entry.dryrun_multichip(inputs["corpus"],
+                                               device="cuda")
+        launches["dryrun_multichip"] = bptc.KERNEL_LAUNCHES
+    out["launches"] = launches
+    return out
+
+
+def _md_one_rank(rng, smi: str) -> dict:
+    """The sharded paths at one rank over NCCL in this process, each held
+    to its unsharded path on the card.  Returns BC7's launches by path and
+    each texture variant's sharded-decode launches."""
+    mesh = PM.make_mesh(device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"one-rank backend {dist.get_backend()}")
+    cfg = R.ControllerConfig()
+    scfg = dataclasses.replace(cfg, rollout_axis="dp")
+    params = D.init_params(cfg.dynamics, torch.Generator(
+        device="cuda").manual_seed(_SEED), "cuda")
+    goal = torch.zeros(cfg.dynamics.latent_dim, device="cuda")
+    sharded = R.Controller(params, goal, scfg, seed=_SEED, device="cuda",
+                           mesh=mesh)
+    plain = R.Controller(params, goal, cfg, seed=_SEED, device="cuda")
+    requests = _requests(rng, 5, cfg.dynamics)
+    bc7 = {}
+    bptc.KERNEL_LAUNCHES = 0
+    PM.reset_collective_bytes()
+    s_ms, s_actions = _serve(sharded, requests, cfg.mppi)
+    bc7["sharded control step (1 rank)"] = bptc.KERNEL_LAUNCHES
+    if bc7["sharded control step (1 rank)"] != len(requests):
+        raise AssertionError(f"BC7 launched {bptc.KERNEL_LAUNCHES} times in "
+                             f"{len(requests)} sharded steps")
+    per_step = {k: v // len(requests) for k, v in _md_bytes().items()}
+    u_ms, u_actions = _serve(plain, requests, cfg.mppi)
+    diff = max(float(np.abs(s - u).max()) for s, u in zip(s_actions,
+                                                          u_actions))
+    if diff > 1e-6:
+        raise AssertionError(f"sharded and unsharded actions differ by "
+                             f"{diff}")
+    print(f"multi-device: {len(requests)} full-width control steps sharded "
+          f"over 'dp' at 1 rank (NCCL) against the unsharded Controller on "
+          f"the same seed: max action diff {diff:.3g} (atol 1e-6); BC7 "
+          f"launches {bc7['sharded control step (1 rank)']}; collective "
+          f"bytes per step {per_step}; on {smi}")
+
+    # The diag_mppi_gap counterpart: one step each, CUDA events, median
+    # of 20 after 5 warm-ups, in turns.
+    words = torch.as_tensor(requests[0], device="cuda")
+    nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(_SEED)
+    times = {"unsharded": [], "sharded": []}
+    for i in range(25):
+        for name, c, m in (("unsharded", cfg, None), ("sharded", scfg, mesh)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad():
+                R.control_step(params, nominal, gen, words, goal, c, mesh=m)
+            end.record()
+            end.synchronize()
+            if i >= 5:
+                times[name].append(start.elapsed_time(end))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"multi-device step ms (CUDA events, median of 20 after 5 "
+          f"warm-ups): unsharded {med['unsharded']:.3f}, sharded 1 rank "
+          f"{med['sharded']:.3f} ({med['sharded'] / med['unsharded'] - 1:+.1%})"
+          f"; served host ms median unsharded "
+          f"{statistics.median(u_ms):.3f}, sharded "
+          f"{statistics.median(s_ms):.3f}; on {smi}")
+
+    # decode_blocks_sharded, every variant, at 1,048,576 blocks.
+    drng = np.random.default_rng([_SEED, 19])
+    variants = {"bptc": F.BPTC, **{v: getattr(F, _VARIANTS[v][3])
+                                   for v in _VARIANTS}}
+    _reset_counts()
+    bptc.KERNEL_LAUNCHES = 0
+    PM.reset_collective_bytes()
+    sharded_counts = {}
+    for v, fmt in variants.items():
+        words = _words(drng.integers(0, 256, (_N_BIG, F.block_size_bytes(fmt)),
+                                     np.uint8))
+        before = dict(_counts(), bptc=bptc.KERNEL_LAUNCHES)
+        got = engine.decode_blocks_sharded(fmt, words, mesh)
+        sharded_counts[v] = dict(_counts(), bptc=bptc.KERNEL_LAUNCHES)[v] \
+            - before[v]
+        want = engine.decode_blocks_device(fmt, words)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{v}: sharded decode differs")
+    if PM.COLLECTIVE_BYTES or set(sharded_counts.values()) != {1}:
+        raise AssertionError(f"sharded decode: bytes "
+                             f"{dict(PM.COLLECTIVE_BYTES)}, launches "
+                             f"{sharded_counts}")
+    bc7["sharded decode (1 rank)"] = sharded_counts["bptc"]
+    print(f"multi-device: decode_blocks_sharded bit-exact to "
+          f"decode_blocks_device for all {len(variants)} variants at "
+          f"{_N_BIG} blocks, one launch each, 0 collective bytes")
+
+    # The horizon-sharded LQT at one rank.
+    prob = _md_lqt_problem()
+    sp = PM.make_mesh(None, ("sp",), device="cuda")
+    PM.reset_collective_bytes()
+    got = PL.lqt_backward_parallel_sharded(*prob, mesh=sp, axis="sp")
+    lqt_bytes = _md_bytes()
+    for g, w in zip(got, PL.lqt_backward_parallel(*prob)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+    print(f"multi-device: lqt_backward_parallel_sharded at H={_MD_LQT[0]}, "
+          f"n={_MD_LQT[1]} (1 rank) within rtol 2e-4 of "
+          f"lqt_backward_parallel; collective bytes {lqt_bytes}")
+
+    # One (1, 1) train step against the unsharded one (bf16, full width).
+    tcfg = TL.TrainConfig(dynamics=D.DynamicsConfig(), batch_size=16,
+                          compressed_obs=True)
+    env = TL.SyntheticVisualEnv(tcfg.dynamics, tcfg.seed, compressed=True)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in env.sample_batch(
+        np.random.default_rng(_SEED), tcfg.batch_size).items()}
+    tmesh = PM.make_mesh((1, 1), device="cuda")
+    base = D.init_params(tcfg.dynamics, torch.Generator(
+        device="cuda").manual_seed(_SEED), "cuda")
+    results = []
+    # Deterministic cuDNN: AdamW's first update is about lr * sign(g), so a
+    # weight gradient reduced in another order could flip a sign.
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m in (None, tmesh):
+            p = _clone(base)
+            step = TL.make_train_step(tcfg.dynamics, D.make_optimizer(p),
+                                      True, m)
+            bptc.KERNEL_LAUNCHES = 0
+            _, loss = step(p, batch)
+            results.append((p, float(loss), bptc.KERNEL_LAUNCHES))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (p_u, loss_u, _), (p_s, loss_s, launches) = results
+    bc7["sharded train step (1 rank)"] = launches
+    np.testing.assert_allclose(loss_s, loss_u, rtol=1e-6)
+    for a, b in zip(D.param_leaves(p_s), D.param_leaves(p_u)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    print(f"multi-device: (1, 1) train step loss {loss_s:.9g} (unsharded "
+          f"{loss_u:.9g}), parameters within 1e-6; BC7 launches {launches}")
+    dist.destroy_process_group()
+    return {"bc7": bc7, "decode": sharded_counts}
+
+
+def _md_ranks(smi: str) -> dict:
+    """Two and four ranks on the one card over gloo (NCCL takes one rank
+    per card), spawned; each result held to the unsharded one on the card.
+    Returns BC7's launches by path, summed over the ranks."""
+    cfg = R.ControllerConfig()
+    rng = np.random.default_rng([_SEED, 4])
+    words = rng.integers(-2**31, 2**31, ((cfg.dynamics.image_size // 4) ** 2,
+                                         4), np.int64).astype(np.int32)
+    blocks = {fmt: words_from_bytes(rng.integers(
+        0, 256, (_MD_DECODE_N, 16), np.uint8)) for fmt in (F.BPTC,
+                                                          F.BPTC_FLOAT)}
+    env = TL.SyntheticVisualEnv(_MD_TRAIN.dynamics, _SEED, compressed=True)
+    train_batch = {k: torch.as_tensor(v) for k, v in env.sample_batch(
+        rng, _MD_TRAIN.batch_size).items()}
+    corpus_dir = tempfile.mkdtemp()
+    corpus = Path(corpus_dir) / "test-texture-BPTC.ktx"
+    tio.save_ktx([Texture.new(F.BPTC, np.load(_GOLDEN)["corpus_blocks"],
+                              64, 64)], str(corpus))
+    inputs = {"words": words, "blocks": blocks, "train_batch": train_batch,
+              "corpus": str(corpus)}
+
+    params = D.init_params(cfg.dynamics, torch.Generator(
+        device="cuda").manual_seed(_SEED), "cuda")
+    want_a, want_s, _ = _md_control(params, torch.as_tensor(
+        words, device="cuda"), cfg)
+    want_decode = {fmt: tuple(t.cpu() for t in engine.decode_blocks_device(
+        fmt, torch.as_tensor(b, device="cuda"))) for fmt, b in blocks.items()}
+    want_lqt = tuple(t.cpu() for t in PL.lqt_backward_parallel(
+        *_md_lqt_problem()))
+    want_loss = _md_train_loss(train_batch)
+
+    bc7 = {}
+    try:
+        for n in (2, 4):
+            t0 = time.perf_counter()
+            outs = launch.run_ranks(_md_rank, n, (inputs,), device="cuda",
+                                    backend="gloo", timeout=_MD_TIMEOUT)
+            wall = time.perf_counter() - t0
+            for r, out in enumerate(outs):
+                for key in ("control", "hier") if n == 4 else ("control",):
+                    a, s = out[key][:2]
+                    torch.testing.assert_close(a, want_a, rtol=3e-5,
+                                               atol=3e-6)
+                    torch.testing.assert_close(s, want_s, rtol=3e-5,
+                                               atol=3e-6)
+                for fmt, (pix, valid) in out["decode"].items():
+                    m = _MD_DECODE_N // n
+                    if not (torch.equal(pix, want_decode[fmt][0][r * m:
+                                                                (r + 1) * m])
+                            and torch.equal(valid, want_decode[fmt][1]
+                                            [r * m:(r + 1) * m])):
+                        raise AssertionError(f"{n} ranks: decode {fmt:#x}")
+                for g, w in zip(out["lqt"], want_lqt):
+                    torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+                if n == 4:
+                    np.testing.assert_allclose(out["train_loss"], want_loss,
+                                               rtol=1e-5)
+                    d = out["dryrun"]
+                    if (d["loss"] != outs[0]["dryrun"]["loss"]
+                            or not torch.equal(d["hier_action"],
+                                               outs[0]["dryrun"]
+                                               ["hier_action"])):
+                        raise AssertionError("dryrun ranks disagree")
+            for path in outs[0]["launches"]:
+                bc7[f"{path} ({n} ranks)"] = sum(o["launches"][path]
+                                                 for o in outs)
+            control = outs[0]["control"]
+            print(f"multi-device: {n} ranks on one card (gloo): full-width "
+                  f"sharded control step within rtol 3e-5 / atol 3e-6 of "
+                  f"the unsharded one on the card (6 steps a rank; host ms, "
+                  f"rank 0, median of the last 5: {control[2]:.3f}; "
+                  f"collective bytes a step {control[3]})"
+                  + (f", ('dcn', 'ici') step likewise (ms "
+                     f"{outs[0]['hier'][2]:.3f}, bytes {outs[0]['hier'][3]})"
+                     f", (2, 2) dp x tp train step loss "
+                     f"{outs[0]['train_loss']:.9g} vs {want_loss:.9g} "
+                     f"(rtol 1e-5), dryrun_multichip loss "
+                     f"{outs[0]['dryrun']['loss']:.6g} on mesh "
+                     f"{outs[0]['dryrun']['mesh']}" if n == 4 else "")
+                  + f"; BPTC and BPTC_FLOAT decode bit-exact at "
+                  f"{_MD_DECODE_N} blocks; LQT within rtol 2e-4; wall "
+                  f"{wall:.2f} s (spawn included) on {smi}")
+    finally:
+        shutil.rmtree(corpus_dir, ignore_errors=True)
+    return bc7
+
+
+def _multi_device_phase(rng, smi: str) -> tuple:
+    one = _phase("multi-device 1 rank", _md_one_rank, rng, smi)
+    bc7 = dict(one["bc7"], **_phase("multi-device 2 and 4 ranks", _md_ranks,
+                                   smi))
+    return bc7, one["decode"]
 
 
 # --- the texture engine ------------------------------------------------------
@@ -2027,7 +2392,13 @@ def main() -> None:
     bc7_paths["train"], bc7_paths["trained ilqr steps"] = _phase(
         "train", _train_path, rng, smi)
     bc7_paths["cli train"] = _phase("cli train", _cli_train_path)
+    md_bc7, md_decode = _multi_device_phase(rng, smi)
+    bc7_paths.update(md_bc7)
     texture_kernels, tex_blocks = _texture_phase(rng, smi, sass)
+    for k in texture_kernels:
+        k["launches_by_path"] = {
+            "texture path": k["launches"],
+            "sharded decode (1 rank)": sum(md_decode[v] for v in k["variants"])}
     tool_kernels = _tools_phase(smi, sass)
     _phase("bptc texture", _bptc_texture, smi)
     # Last: its rounds of back-to-back launches are not to move the device

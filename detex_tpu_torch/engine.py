@@ -9,6 +9,8 @@ per-block loop.
 Layers:
   decode_blocks_device : (N, k) int32 word tensor -> the decoder's packed
       payload and valid flags, on the tensor's device
+  decode_blocks_sharded: the same on each rank of a mesh axis, for its
+      N / n rows of the words, with no collective
   decode_blocks        : (N, block bytes) u8 blocks -> per-block pixel
       bytes on the host, byte for byte the reference's pixel buffers
   decompress_texture_linear_device / _tiled_device : the whole texture,
@@ -42,6 +44,7 @@ from detex_tpu_torch.texture import Texture
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
+from detex_tpu_torch.parallel import mesh as mesh_mod
 
 _FULL = 0xFFFFFFFF
 BACKENDS = ("device", "torch", "native")
@@ -100,6 +103,22 @@ def decode_blocks_device(tex_fmt: int, words: torch.Tensor,
     """Decode an (N, k) int32 word tensor on its device.  Returns the
     decoder's packed payload and (N,) bool valid, on that device."""
     return _decoder(tex_fmt)(words, mode_mask, flags)
+
+
+def decode_blocks_sharded(tex_fmt: int, words: torch.Tensor, mesh,
+                          mode_mask=_FULL, flags=0, axis: str = "dp"):
+    """Scale-out decode (counterpart of detex_tpu/engine.py:139-163): each
+    rank of `mesh` decodes its N / n rows of the (N, k) int32 `words` along
+    `axis` with the local kernel (the plain version for a CPU tensor) and
+    returns its shard of (pixels, valid).  Blocks are independent
+    (texture.c:85-96), so no collective runs.  N not divisible by the
+    axis size raises ValueError."""
+    decode = _decoder(tex_fmt)
+    n_shards = mesh_mod.axis_size(mesh, axis)
+    if words.shape[0] % n_shards:
+        raise ValueError(f"N={words.shape[0]} not divisible by mesh axis "
+                         f"'{axis}' size {n_shards}")
+    return decode(mesh_mod.shard_batch(words, mesh, axis), mode_mask, flags)
 
 
 def decode_blocks(tex_fmt: int, blocks_u8: np.ndarray, mode_mask=_FULL,

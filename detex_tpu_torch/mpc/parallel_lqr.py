@@ -1,6 +1,6 @@
 """Parallel (log-depth) LQR and LQT backward passes, single device.
 
-Counterpart of detex_tpu/mpc/parallel_lqr.py:32-146, 233-274.  The Riccati
+Counterpart of detex_tpu/mpc/parallel_lqr.py.  The Riccati
 backward pass is a recursion of depth H; written as an associative
 combination of conditional value-function elements it runs in
 ceil(log2(H + 1)) levels of batched combines.  (Cf. Särkkä and
@@ -28,13 +28,16 @@ agree to float rounding, not bit for bit.  The inverses and solves use
 the `_ex` forms, which do not read an error flag back to the host (a
 singular system gives non-finite values, as in the JAX package).
 
-The horizon-sharded variant (lqt_backward_parallel_sharded) is not ported
-yet: it needs the multi-GPU layer.
+lqt_backward_parallel_sharded splits the horizon over the ranks of a mesh
+axis: a local suffix scan per rank, one all_gather of the chunk totals,
+and one combine with the later chunks' suffix.
 """
 
 from __future__ import annotations
 
 import torch
+
+from detex_tpu_torch.parallel import mesh as mesh_mod
 
 Elements = tuple
 
@@ -167,6 +170,74 @@ def _identity_elements(k: int, n: int, dtype=torch.float32,
     zmat = torch.zeros((k, n, n), dtype=dtype, device=device)
     zvec = torch.zeros((k, n), dtype=dtype, device=device)
     return (eye, zvec, zmat, zvec, zmat)
+
+
+def _flat(elems: Elements) -> torch.Tensor:
+    return torch.cat([e.reshape(-1) for e in elems])
+
+
+def _unflat(buf: torch.Tensor, like: Elements) -> Elements:
+    """(m, sum of sizes) -> the elements' tensors with a leading m."""
+    out, offset = [], 0
+    for e in like:
+        out.append(buf[:, offset:offset + e.numel()]
+                   .reshape(buf.shape[0], *e.shape))
+        offset += e.numel()
+    return tuple(out)
+
+
+def lqt_backward_parallel_sharded(f_mat, l_mat, c_vec, q_mat, q_vec, r_mat,
+                                  r_vec, m_mat, p_term, p_vec_term, mesh,
+                                  axis: str = "sp",
+                                  gather_output: bool = True):
+    """Horizon-sharded parallel LQT backward (counterpart of
+    detex_tpu/mpc/parallel_lqr.py:148-231), run by every rank of `axis`
+    on the same (replicated) arguments as lqt_backward_parallel.
+
+    The H+1 value elements, padded with identity elements after the
+    terminal one to a multiple of the axis size n, split into n chunks:
+
+      1. each rank runs the log-depth suffix scan over its chunk;
+      2. one all_gather over `axis` exchanges the n chunk totals (the five
+         element tensors flattened into one buffer of 3 n_x^2 + 2 n_x
+         floats), whatever H is;
+      3. each rank combines the suffix of the later chunks into its own.
+
+    Returns (P (H+1, n, n), eta (H+1, n)), equal to lqt_backward_parallel's
+    up to float rounding.  gather_output=True gathers the chunks (an
+    all_gather of H-proportional size); False returns this rank's chunk
+    of the padded result (ceil((H+1)/n) entries; entries past H+1 are
+    identity padding)."""
+    h, n = f_mat.shape[0], f_mat.shape[1]
+    n_dev = mesh_mod.axis_size(mesh, axis)
+    i_dev = mesh_mod.axis_index(mesh, axis)
+    elems = _lqt_elements(f_mat, l_mat, c_vec, q_mat, q_vec, r_mat, r_vec,
+                          m_mat, p_term, p_vec_term)
+    total = h + 1
+    pad = (-total) % n_dev
+    if pad:
+        # Identity padding after the terminal element leaves every suffix
+        # that includes it unchanged.
+        ident = _identity_elements(pad, n, f_mat.dtype, f_mat.device)
+        elems = tuple(torch.cat([e, i]) for e, i in zip(elems, ident))
+    chunk = (total + pad) // n_dev
+    local = _suffix_scan(tuple(e[i_dev * chunk:(i_dev + 1) * chunk]
+                               for e in elems))
+    firsts = tuple(e[0] for e in local)
+    totals = _unflat(mesh_mod.all_gather(_flat(firsts), mesh, axis), firsts)
+    # R_j = T_j (+) ... (+) T_last; this chunk's tail is R_{i+1}, the
+    # identity for the last chunk.
+    tails = tuple(torch.cat([t, i]) for t, i in zip(
+        _suffix_scan(totals),
+        _identity_elements(1, n, f_mat.dtype, f_mat.device)))
+    _, _, _, eta, j = _combine(local, tuple(
+        t[i_dev + 1].expand_as(e) for t, e in zip(tails, local)))
+    if not gather_output:
+        return j, eta
+    whole = _unflat(mesh_mod.all_gather(_flat((j, eta)), mesh, axis),
+                    (j, eta))
+    return (whole[0].reshape(-1, n, n)[:total],
+            whole[1].reshape(-1, n)[:total])
 
 
 def lqt_gains(f_mat, l_mat, c_vec, r_mat, r_vec, m_mat, p_next, eta_next):

@@ -7,8 +7,13 @@ and, with n_ilqr_iterations > 0, refines the plan with iLQR, with no host
 round trip inside the step.  The training step decodes its batches with
 the same kernel (decode_obs_batch).
 
-Not ported yet: the sharded rollouts (ControllerConfig has no
-rollout_axis).
+Multi-rank: with ControllerConfig.rollout_axis and a mesh
+(parallel/mesh.py), every rank decodes the observation, encodes it and
+rolls out its shard of the MPPI rollouts (mppi.mppi_step); the reductions
+are collectives over the axis, and every rank computes the same action.
+Parameters split over the mesh's "tp" axis (dynamics.shard_params) make
+the encoder and the dynamics tensor-parallel; iLQR then runs on the
+parameters gathered whole on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ class ControllerConfig:
     ilqr_parallel: bool = False    # log-depth parallel-LQT backward
     goal_weight: float = 1.0
     control_weight: float = 0.1
+    # Mesh axis (or tuple of axes) to shard the MPPI rollout batch over;
+    # None is one rank's program.  The mesh goes to control_step or the
+    # Controller: the port has no ambient mesh (JAX's GSPMD form).
+    rollout_axis: Optional[object] = None
 
 
 def unpack_rgba8_images(packed: torch.Tensor, height: int,
@@ -89,30 +98,37 @@ def latent_cost_fn(goal_z: torch.Tensor, cfg: ControllerConfig):
 
 
 def control_step(params, nominal, generator, obs_words, goal_z,
-                 cfg: ControllerConfig, *, eps=None):
+                 cfg: ControllerConfig, *, eps=None, mesh=None):
     """One full control step: decode BC7 obs -> encode -> MPPI update ->
     (optional iLQR) -> (action u_0 (A,), shifted nominal (H, A),
     diagnostics: 0-d tensors, ilqr_cost among them with iLQR).
 
     The MPPI noise comes from `generator` unless `eps` (K, H, A) is
     given.  Observations are BC7 words: an obs_format other than F.BPTC
-    raises."""
+    raises.  With cfg.rollout_axis the rollouts shard over that axis of
+    `mesh` (which is then required), and with `mesh` the params are this
+    rank's tensor-parallel shards where the mesh has a "tp" axis."""
     _check_obs_format(cfg)
     dcfg = cfg.dynamics
     img = decode_obs(obs_words, dcfg.image_size, dcfg.image_size)
-    z0 = D.encode(params, img[None].to(torch.uint8), dcfg)[0]
+    z0 = D.encode(params, img[None].to(torch.uint8), dcfg, mesh)[0]
 
     def dyn_batched(z, u):
-        return D.dynamics_apply(params, z, u, dcfg)
+        return D.dynamics_apply(params, z, u, dcfg, mesh)
 
     cost = latent_cost_fn(goal_z, cfg)
     new_nominal, diag = mppi_mod.mppi_step(
         nominal, z0, dyn_batched, cost, cfg.mppi, eps=eps,
-        generator=generator)
+        generator=generator, rollout_axis=cfg.rollout_axis, mesh=mesh)
 
     if cfg.n_ilqr_iterations > 0:
+        # iLQR's torch.func transforms take no collectives: on a "tp" mesh
+        # it runs on the parameters gathered whole.
+        whole = D.gather_params(params, mesh) if mesh is not None \
+            else params
+
         def dyn1(x, u):
-            return dyn_batched(x[None], u[None])[0]
+            return D.dynamics_apply(whole, x[None], u[None], dcfg)[0]
 
         def cost1(x, u, t):
             return cost(x[None], u[None], t)[0]
@@ -134,12 +150,14 @@ def control_step(params, nominal, generator, obs_words, goal_z,
 class Controller:
     """Serves control_step one observation at a time on `device` (the card
     unless device="cpu"), keeping the nominal plan and a seeded generator
-    between steps."""
+    between steps.  With a mesh, every rank of it runs its own Controller
+    on the same observations and seed (control_step's `mesh`)."""
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
         _check_obs_format(cfg)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.goal_z = goal_z.to(self.device)
         self.cfg = cfg
@@ -158,7 +176,7 @@ class Controller:
             .to(self.device).contiguous()
         action, self.nominal, self.diag = control_step(
             self.params, self.nominal, self.generator, words, self.goal_z,
-            self.cfg)
+            self.cfg, mesh=self.mesh)
         return action.cpu().numpy()
 
 
@@ -206,7 +224,7 @@ class PipelinedController(Controller):
         words = host.to(self.device, non_blocking=True)
         action, self.nominal, self.diag = control_step(
             self.params, self.nominal, self.generator, words, self.goal_z,
-            self.cfg)
+            self.cfg, mesh=self.mesh)
         out = self._action_host[slot]
         out.copy_(action, non_blocking=True)
         event = None

@@ -1,6 +1,6 @@
-"""Dynamics-model training loop: checkpointed, metered, on one device.
+"""Dynamics-model training loop: mesh-sharded, checkpointed, metered.
 
-Counterpart of detex_tpu/mpc/train_loop.py:32-284.  The environments are
+Counterpart of detex_tpu/mpc/train_loop.py.  The environments are
 the same numpy code, so one seed gives the same batches, byte for byte,
 in both packages.  With compressed observations the training step decodes
 the BC7 batches on the device with the control step's decode
@@ -9,8 +9,14 @@ Checkpoints are written every `checkpoint_every` steps and a run resumes
 deterministically from `checkpoint_dir/latest`: the data stream is
 re-seeded from the restored step counter.
 
-Not ported yet: the mesh (TrainConfig.mesh_shape other than None raises),
-which waits for the multi-GPU layer.
+With TrainConfig.mesh_shape = (dp, tp) every rank of the process group
+(parallel/distributed.initialize; a single process is a world of one)
+samples the same deterministic batch and keeps its dp rows, holds its tp
+shards of the parameters and the optimizer state (dynamics.shard_params),
+and averages the gradients over dp (dynamics.train_step).  Rank 0 alone
+logs metrics and writes checkpoints, in the single-process format (the
+shards gathered whole), so a checkpoint written with a mesh resumes
+without one, and the reverse.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from detex_tpu_torch import resolve_device
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc.runtime import decode_obs_batch
+from detex_tpu_torch.parallel import mesh as mesh_mod
 from detex_tpu_torch.utils import checkpoint as ckpt
 from detex_tpu_torch.utils.metrics import MetricsLogger
 
@@ -40,7 +47,7 @@ class TrainConfig:
     seed: int = 0
     checkpoint_every: int = 50
     checkpoint_dir: Optional[str] = None
-    mesh_shape: Optional[tuple] = None      # not ported: must stay None
+    mesh_shape: Optional[tuple] = None      # (dp, tp); None: no mesh
     # Observations arrive as BC7 blocks and are decoded on the device by
     # the control step's kernel; the env must emit obs_words and
     # next_obs_words.
@@ -210,32 +217,51 @@ def decode_batch(batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(dcfg: D.DynamicsConfig, optimizer,
-                    compressed_obs: bool = False):
+                    compressed_obs: bool = False, mesh=None):
     """step(params, batch) -> (params, loss): one AdamW step of
     `optimizer`; with compressed_obs the batch carries obs_words and
-    next_obs_words, decoded on the device first (decode_batch)."""
+    next_obs_words, decoded on the device first (decode_batch).  With a
+    mesh, the batch is this rank's dp rows and the params its tp shards
+    (dynamics.train_step)."""
     if not compressed_obs:
         def step(params, batch):
-            return D.train_step(params, optimizer, batch, dcfg)
+            return D.train_step(params, optimizer, batch, dcfg, mesh)
         return step
 
     def visual_step(params, batch):
         return D.train_step(params, optimizer,
-                            decode_batch(batch, dcfg.image_size), dcfg)
+                            decode_batch(batch, dcfg.image_size), dcfg, mesh)
 
     return visual_step
+
+
+def _opt_state(state_dict: dict, leaf, names) -> dict:
+    """An optimizer state dict with each moment passed through
+    leaf(tensor, layer name, leaf name)."""
+    state = {i: dict(st, **{k: leaf(st[k], *names[i])
+                            for k in ("exp_avg", "exp_avg_sq") if k in st})
+             for i, st in state_dict["state"].items()}
+    return dict(state_dict, state=state)
+
+
+def _leaf_names(params) -> list:
+    """(layer name, leaf name) of each leaf, in param_leaves order."""
+    return [(name, k) for part in sorted(params)
+            for name in sorted(params[part])
+            for k in sorted(params[part][name])]
 
 
 def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
           env=None, device="cuda"):
     """Run the training loop on `device` (the card unless device="cpu");
-    returns (params, optimizer, last_loss).
+    returns (params, optimizer, last_loss): with a mesh, this rank's
+    shards and the global batch's loss.
 
     Resumes from cfg.checkpoint_dir/latest if present."""
     device = resolve_device(device)
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("a training mesh needs the multi-GPU "
-                                  "layer, which is not ported yet")
+    mesh = (None if cfg.mesh_shape is None
+            else mesh_mod.make_mesh(cfg.mesh_shape, device=device))
+    lead = mesh is None or mesh.get_rank() == 0
     dcfg = cfg.dynamics
     env = env or SyntheticVisualEnv(dcfg, cfg.seed,
                                     compressed=cfg.compressed_obs)
@@ -244,8 +270,9 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
     params = D.init_params(dcfg, generator, device)
-    optimizer = D.make_optimizer(params, cfg.lr)
+    names = _leaf_names(params)
     start_step = 0
+    opt_state = None
 
     ckpt_path = (Path(cfg.checkpoint_dir) / "latest"
                  if cfg.checkpoint_dir else None)
@@ -255,23 +282,41 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
             for p, saved in zip(D.param_leaves(params),
                                 D.param_leaves(state["params"])):
                 p.copy_(saved)
-        optimizer.load_state_dict(state["opt_state"])
+        opt_state = state["opt_state"]
         start_step = int(state["step"])
+    if mesh is not None:
+        params = D.shard_params(params, mesh)
+    optimizer = D.make_optimizer(params, cfg.lr)
+    if opt_state is not None:
+        if mesh is not None:
+            opt_state = _opt_state(opt_state, lambda x, n, k: D.shard_leaf(
+                x, mesh, n, k), names)
+        optimizer.load_state_dict(opt_state)
 
-    step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs)
+    step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs, mesh)
     loss = torch.zeros(())
     for step in range(start_step, cfg.n_steps):
         rng = np.random.default_rng(
             np.random.SeedSequence([cfg.seed, step]))
-        batch = {k: torch.as_tensor(v).to(device)
+        batch = {k: torch.as_tensor(v)
                  for k, v in env.sample_batch(rng, cfg.batch_size).items()}
-        params, loss = step_fn(params, batch)
-        if step % 10 == 0 or step == cfg.n_steps - 1:
+        if mesh is not None:
+            batch = {k: mesh_mod.shard_batch(v, mesh, "dp")
+                     for k, v in batch.items()}
+        params, loss = step_fn(params, {k: v.to(device)
+                                        for k, v in batch.items()})
+        if lead and (step % 10 == 0 or step == cfg.n_steps - 1):
             metrics.log(step, loss=float(loss))
         if (ckpt_path is not None and cfg.checkpoint_every
                 and (step + 1) % cfg.checkpoint_every == 0):
-            ckpt_path.parent.mkdir(parents=True, exist_ok=True)
-            ckpt.save(str(ckpt_path), ckpt.controller_state(
-                params, optimizer.state_dict(), torch.zeros((1,)),
-                generator.get_state(), step + 1))
+            whole, opt = params, optimizer.state_dict()
+            if mesh is not None:        # every rank takes part in gathers
+                whole = D.gather_params(params, mesh)
+                opt = _opt_state(opt, lambda x, n, k: D.gather_leaf(
+                    x, mesh, n, k), names)
+            if lead:
+                ckpt_path.parent.mkdir(parents=True, exist_ok=True)
+                ckpt.save(str(ckpt_path), ckpt.controller_state(
+                    whole, opt, torch.zeros((1,)), generator.get_state(),
+                    step + 1))
     return params, optimizer, float(loss)

@@ -412,7 +412,12 @@ def test_port_imports_no_jax():
         "        'detex_tpu_torch.utils.guards',\n"
         "        'detex_tpu_torch.utils.checkpoint',\n"
         "        'detex_tpu_torch.utils.metrics',\n"
-        "        'detex_tpu_torch.ops.bptc_encode'} <= set(names)\n"
+        "        'detex_tpu_torch.ops.bptc_encode',\n"
+        "        'detex_tpu_torch.parallel.mesh',\n"
+        "        'detex_tpu_torch.parallel.distributed',\n"
+        "        'detex_tpu_torch.parallel.launch',\n"
+        "        'detex_tpu_torch.tools.bench_scaling',\n"
+        "        'detex_tpu_torch.tools.diag_mppi_gap'} <= set(names)\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"

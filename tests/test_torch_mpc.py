@@ -245,14 +245,6 @@ def test_mppi_step_draws_eps_from_generator():
     assert not torch.equal(drawn[0], other[0])
 
 
-@pytest.mark.parametrize("kw", [{"rollout_axis": "dp"}, {"mesh": object()}])
-def test_mppi_step_rejects_sharding(kw):
-    _, tcfg, eps, nominal, z0, _, tdyn, _, tcost = _mppi_problem("linear")
-    with pytest.raises(NotImplementedError):
-        TM.mppi_step(torch.from_numpy(nominal), torch.from_numpy(z0), tdyn,
-                     tcost, tcfg, eps=torch.from_numpy(eps), **kw)
-
-
 def test_receding_horizon_shift():
     nominal = np.arange(24, dtype=np.float32).reshape(6, 4)
     np.testing.assert_array_equal(
@@ -264,7 +256,7 @@ def test_config_defaults_match_jax():
     """The full-width slice is ControllerConfig()'s defaults on both
     sides (64x64 obs, features 32-256, latent 128, hidden 512, 8192 x 32
     rollouts); ControllerConfig, ILQRConfig and TrainConfig agree field for
-    field but for the port's missing rollout_axis and the dtype's type."""
+    field but for the dtype's type."""
     from detex_tpu.mpc import ilqr as JI
     from detex_tpu.mpc import train_loop as JT
     from detex_tpu_torch.mpc import ilqr as TI
@@ -287,7 +279,7 @@ def test_config_defaults_match_jax():
                    (JT.TrainConfig(), TT.TrainConfig())):
         assert plain(jc) == plain(tc), type(tc).__name__
     jd, td = plain(JR.ControllerConfig()), plain(TR.ControllerConfig())
-    assert jd.pop("rollout_axis") is None
+    assert jd["rollout_axis"] is None
     assert jd == td
     assert list(jd) == list(td)            # the same fields, in order
     assert TD.DynamicsConfig().compute_dtype == torch.bfloat16

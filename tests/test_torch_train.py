@@ -422,12 +422,6 @@ def test_train_resume_matches_straight_run(tmp_path):
     np.testing.assert_allclose(resumed, straight, rtol=2e-4, atol=2e-5)
 
 
-def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        TT.train(dataclasses.replace(_CFG, mesh_shape=(1, 1)),
-                 device="cpu")
-
-
 def test_train_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -446,7 +440,8 @@ def test_cli_train(tmp_path, capsys):
     assert out[-1].startswith("final loss: ")
     assert np.isfinite(float(out[-1].split(": ")[1]))
     assert (tmp_path / "ck" / "latest").exists()
-    with pytest.raises(NotImplementedError):
+    # A mesh that does not match the world size (one process) raises.
+    with pytest.raises(ValueError, match="world size 1"):
         cli_train.main(["--steps", "1", "--device", "cpu", "--mesh", "2x1"])
 
 
