@@ -62,7 +62,20 @@ all at once) and drives the port's three paths:
     blocks; BC1/BC1A and EAC RG11: those and their row-shuffled copy),
     each kernel held to its plain version there and at its tile's edge
     sizes, and the profiler's reading of each kernel before and after
-    those rounds.
+    those rounds;
+  * then the last modules of the port: dtx-validate on a corpus written
+    from the goldens' corpus_blocks (the 17 compressed files, each
+    BIT-EXACT) with --fuzz 65,536 (19 families against the native
+    oracle, BC6H drawing all 18 mode codes) and dtx-view on the BPTC and
+    BPTC_FLOAT files (PNG equal to the CPU's); tools.mass_fuzz at 262,144
+    blocks per family; and the three benches at their defaults:
+    bench_pipelines (a 1024^2 ETC2_EAC texture to RGBA8 through
+    engine._device_pipeline, byte-equal to the native decode; BC6H to the
+    latent encoder, batch 64, equal to the plain BC6H version's),
+    bench_control_step --ilqr 0 2 --wallclock (each row's first action
+    within 1e-6 of a fresh Controller's) and bench_train_step (the first
+    loss within rtol 1e-5 of dynamics.train_step's); each phase requires
+    its kernels' launch counts to rise.
 
 Every kernel's time is printed beside its bound: the larger of its bytes
 over HBM's rate and, for a kernel without a conditional branch, its
@@ -105,6 +118,8 @@ from detex_tpu_torch import formats as F
 from detex_tpu_torch import io as tio
 from detex_tpu_torch.cli import convert as cli_convert
 from detex_tpu_torch.cli import train as cli_train
+from detex_tpu_torch.cli import validate as cli_validate
+from detex_tpu_torch.cli import view as cli_view
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import ilqr as ILQR
 from detex_tpu_torch.mpc import parallel_lqr as PL
@@ -115,7 +130,11 @@ from detex_tpu_torch.ops.bitops import words_from_bytes
 from detex_tpu_torch.parallel import launch
 from detex_tpu_torch.parallel import mesh as PM
 from detex_tpu_torch.texture import Texture
+from detex_tpu_torch.tools import bench_control_step as BCS
+from detex_tpu_torch.tools import bench_pipelines as BPL
+from detex_tpu_torch.tools import bench_train_step as BTS
 from detex_tpu_torch.tools import interleave_probe as IP
+from detex_tpu_torch.tools import mass_fuzz
 from detex_tpu_torch.tools import mxu_probe as MP
 from detex_tpu_torch.tools import profile_sections as PS
 from detex_tpu_torch.utils.metrics import MetricsLogger
@@ -1455,25 +1474,11 @@ def etc_branch_blocks(variant: str, n: int, rng) -> np.ndarray:
     return b
 
 
-# Low bits of byte 0 of each BC6H mode (decompress-bptc-float.c:23-33):
-# modes 0 and 1 by their 2-bit code, 2-13 by their 5-bit one, then the 4
-# reserved 5-bit codes.
-_BC6H_CODES = ((0, 2), (1, 2)) + tuple((c, 5) for c in (
-    2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 23, 27, 31))
-
-
-def bc6h_mode_blocks(n: int, rng) -> np.ndarray:
-    """n random BC6H blocks whose mode code is drawn uniformly from the 14
-    modes and the 4 reserved codes (random bytes put half the blocks in
-    modes 0 and 1).  tests/test_torch_bptc_float.py draws its blocks here
-    too."""
-    b = rng.integers(0, 256, (n, 16), np.uint8)
-    pick = rng.integers(0, len(_BC6H_CODES), n)
-    code = np.array([c for c, _ in _BC6H_CODES], np.uint8)[pick]
-    keep = np.array([0xFF ^ ((1 << w) - 1) for _, w in _BC6H_CODES],
-                    np.uint8)[pick]
-    b[:, 0] = (b[:, 0] & keep) | code
-    return b
+# The BC6H draw (cli/validate.py, shared with the fuzz): mode codes uniform
+# over the 14 modes and the 4 reserved codes.  tests/test_torch_bptc_float.py
+# draws its blocks here too.
+_BC6H_CODES = cli_validate.BC6H_CODES
+bc6h_mode_blocks = cli_validate.bc6h_mode_blocks
 
 
 def _bc6h_code_key(blocks: np.ndarray) -> np.ndarray:
@@ -1627,7 +1632,8 @@ def _host_converted(tex: Texture, pf: int, params) -> np.ndarray:
     px = lut[native.view(np.uint16)].view(np.uint8)
     tiles = np.where(valid[:, None], px, 0).astype(np.uint8)
     return CD.to_bytes(engine._assemble(
-        torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1), tex))
+        torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1),
+        tex.width_in_blocks, tex.height_in_blocks, tex.width, tex.height))
 
 
 # Labels of the texture calls that convert other than by the identity or
@@ -1859,7 +1865,9 @@ def _breakdown(label: str, tex: Texture, pf, decode, smi: str) -> None:
             .reshape(tex.n_blocks, 16, -1))
         tiles = stage("zero_invalid", lambda: torch.where(
             valid[:, None, None], conv, 0))
-        img = stage("assemble", lambda: engine._assemble(tiles, tex))
+        img = stage("assemble", lambda: engine._assemble(
+            tiles, tex.width_in_blocks, tex.height_in_blocks, tex.width,
+            tex.height))
         stage("device_to_host", lambda: CD.to_bytes(img))
     walls = []
     for _ in range(5):
@@ -2376,6 +2384,199 @@ def _tools_phase(smi: str, sass: dict) -> list:
     return entries
 
 
+# --- the last modules: dtx-validate, dtx-view, the mass fuzz, the benches ---
+
+_FUZZ_N = 65536            # dtx-validate --fuzz: blocks per family
+_MASS_FUZZ_N = 262144      # tools.mass_fuzz --blocks: blocks per family
+
+
+def _all_counts() -> dict:
+    """The launch counts of all 19 decode variants, BC7 ("bptc") among
+    them."""
+    return dict(_counts(), bptc=bptc.KERNEL_LAUNCHES)
+
+
+def _reset_all_counts() -> None:
+    _reset_counts()
+    bptc.KERNEL_LAUNCHES = 0
+
+
+def _launched_every_variant(what: str) -> dict:
+    counts = _all_counts()
+    if not all(counts.values()):
+        raise AssertionError(f"{what}: a decode kernel was not launched: "
+                             f"{counts}")
+    return counts
+
+
+def _validate_path() -> dict:
+    """dtx-validate on the card over a corpus written from the goldens'
+    corpus_blocks (validate.c's 17 compressed files) with --fuzz, then
+    dtx-view on the BPTC and BPTC_FLOAT files, whose PNGs must equal the
+    CPU's.  Returns the launch counts of the validate run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        names = cli_validate.write_golden_corpus(d)
+        _reset_all_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_validate.main(["--corpus", str(d), "--fuzz",
+                                    str(_FUZZ_N), "-o", str(d / "s.png")])
+        launches = _launched_every_variant("validate")
+        lines = out.getvalue().splitlines()
+        print("\n".join(f"validate: {x}" for x in lines))
+        if rc != 0:
+            raise AssertionError(f"dtx-validate returned {rc}")
+        for name in names:
+            if not any(name in x and x.endswith("BIT-EXACT")
+                       for x in lines):
+                raise AssertionError(f"dtx-validate: {name} not BIT-EXACT")
+        fuzz = [x for x in lines if x.strip().startswith("fuzz ")
+                and x.endswith(f"{_FUZZ_N:,d} blocks BIT-EXACT")]
+        if len(fuzz) != len(cli_validate.FUZZ_FAMILIES):
+            raise AssertionError(f"dtx-validate: {len(fuzz)} fuzz families "
+                                 "BIT-EXACT, not 19")
+        for family in ("BPTC", "BPTC_FLOAT"):
+            pngs = []
+            for extra in ([], ["--device", "cpu"]):
+                png = d / f"view{len(pngs)}.png"
+                argv = [str(d / f"test-texture-{family}.ktx"), "-o",
+                        str(png), "-z", "2", *extra]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    if cli_view.main(argv) != 0:
+                        raise AssertionError("dtx-view returned non-zero")
+                pngs.append(png.read_bytes())
+            if pngs[0] != pngs[1]:
+                raise AssertionError(f"dtx-view {family}: the card's PNG "
+                                     "differs from the CPU's")
+    print(f"validate: exit 0, {len(names)} corpus files BIT-EXACT against "
+          f"the goldens, {len(fuzz)} families x {_FUZZ_N} fuzz blocks "
+          f"BIT-EXACT against native; dtx-view PNGs of BPTC and BPTC_FLOAT "
+          f"equal to the CPU's; launches {launches}")
+    return launches
+
+
+def _mass_fuzz_path(smi: str) -> dict:
+    """tools.mass_fuzz on the card at _MASS_FUZZ_N blocks per family, all
+    19 families; returns the launch counts."""
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    rc = mass_fuzz.main(["--blocks", str(_MASS_FUZZ_N)])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"mass_fuzz returned {rc}")
+    launches = _launched_every_variant("mass fuzz")
+    n = _MASS_FUZZ_N * len(mass_fuzz.FAMILIES)
+    print(f"mass fuzz: {n} blocks ({len(mass_fuzz.FAMILIES)} families x "
+          f"{_MASS_FUZZ_N}) bit-exact against native in {wall:.2f} s, "
+          f"{n / wall:.4g} blocks/s (decode on the card, oracle on the "
+          f"host's threads, both included) on {smi}; launches {launches}")
+    return launches
+
+
+def _bench_rows(name: str, rows: list) -> None:
+    for row in rows:
+        print(f"{name}: {json.dumps(row)}")
+
+
+def _bench_control_path(smi: str) -> int:
+    """tools.bench_control_step --ilqr 0 2 --wallclock at ControllerConfig()'s
+    width; each row's first action is held (inside the bench) to a fresh
+    Controller's on the same seed and observation, atol 1e-6.  Returns the
+    BC7 launches."""
+    bptc.KERNEL_LAUNCHES = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = BCS.main(["--ilqr", "0", "2", "--wallclock"])
+    launches = bptc.KERNEL_LAUNCHES
+    _bench_rows("bench control step", rows)
+    steps = [r for r in rows if r["metric"] == "control_step_ms"]
+    if [(r["ilqr_iterations"], r["backward"]) for r in steps] != [
+            (0, "n/a"), (2, "seq"), (2, "parallel-lqt")]:
+        raise AssertionError("bench control step: rows missing")
+    for r in steps:
+        if r["bc7_launches_per_step"] != 1.0 or \
+                not r["first_action_max_diff"] <= BCS.ATOL:
+            raise AssertionError(f"bench control step: {r}")
+    print("bench control step: "
+          + "; ".join(f"iLQR {r['ilqr_iterations']} {r['backward']}: median "
+                      f"{r['ms_per_step']:.3f} ms (p10 {r['p10_ms']:.3f}, "
+                      f"p90 {r['p90_ms']:.3f}; host {r['host_ms_per_step']:.3f})"
+                      f" over {r['steps']} steps after {r['warmup']}"
+                      for r in steps)
+          + "; wallclock " + ", ".join(
+              f"{'pipelined' if r['pipelined'] else 'sync'} "
+              f"{r['ms_per_step']:.3f} ms" for r in rows
+              if r["metric"] == "control_step_wallclock_ms")
+          + f"; first actions within {BCS.ATOL} of a Controller's; BC7 "
+          f"launches {launches} on {smi}")
+    return launches
+
+
+def _bench_train_path(smi: str) -> int:
+    """tools.bench_train_step at batch 64 of 64x64 BC7 observations; the
+    first compressed step's loss is held (inside the bench) to
+    dynamics.train_step called directly, rtol 1e-5.  Returns the BC7
+    launches."""
+    bptc.KERNEL_LAUNCHES = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        (row,) = BTS.main([])
+    launches = bptc.KERNEL_LAUNCHES
+    _bench_rows("bench train step", [row])
+    if row["bc7_launches_per_step"] != 2.0:
+        raise AssertionError(f"bench train step: {row}")
+    print(f"bench train step: compressed {row['ms_per_step_compressed']:.3f}"
+          f" ms, raw obs {row['ms_per_step_raw_obs']:.3f}, decode only "
+          f"{row['decode_only_ms']:.3f} (decode share "
+          f"{row['decode_share_pct']:.1f}%); host enqueue "
+          f"{row['host_enqueue_ms_compressed']:.3f} / "
+          f"{row['host_enqueue_ms_raw_obs']:.3f} / "
+          f"{row['host_enqueue_ms_decode_only']:.3f} ms; first loss "
+          f"{row['first_loss']:.9g} against train_step's "
+          f"{row['first_loss_train_step']:.9g}; BC7 launches {launches} on "
+          f"{smi}")
+    return launches
+
+
+def _bench_pipelines_path(smi: str) -> dict:
+    """tools.bench_pipelines etc bc6h: config 2's image byte-equal (inside
+    the bench) to the native decode, config 4's images and latents equal
+    to the plain BC6H version's.  Returns the launch counts."""
+    _reset_all_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        etc_row, bc6h_row = BPL.main([])
+    launches = _all_counts()
+    _bench_rows("bench pipelines", [etc_row, bc6h_row])
+    if etc_row["etc2_eac_launches_per_step"] != 1.0 or \
+            bc6h_row["bc6h_launches_per_step"] != 1.0:
+        raise AssertionError("bench pipelines: a step did not launch its "
+                             "kernel once")
+    print(f"bench pipelines: ETC2_EAC 1024^2 -> RGBA8 "
+          f"{etc_row['ms_per_1024sq_texture']:.4f} ms "
+          f"({etc_row['value']:.4g} blocks/s), byte-equal to native; BC6H "
+          f"-> latent batch 64 {bc6h_row['ms_per_batch64']:.3f} ms, decode "
+          f"+ unpack {bc6h_row['decode_unpack_standalone_ms']:.4f}, kernel "
+          f"{bc6h_row['decode_kernel_only_ms']:.4f}; latents equal to the "
+          f"plain version's (max diff "
+          f"{bc6h_row['latent_max_diff_vs_plain']:.3g}) on {smi}")
+    return launches
+
+
+def _last_modules_phase(smi: str) -> tuple:
+    """The phases of the last modules.  Returns BC7's launches by path and
+    the other variants' launches by path."""
+    by_path = {
+        "validate": _phase("validate", _validate_path),
+        "mass fuzz": _phase("mass fuzz", _mass_fuzz_path, smi),
+        "bench pipelines": _phase("bench pipelines", _bench_pipelines_path,
+                                  smi)}
+    bc7 = {path: c.pop("bptc") for path, c in by_path.items()}
+    bc7["bench control step"] = _phase("bench control step",
+                                       _bench_control_path, smi)
+    bc7["bench train step"] = _phase("bench train step", _bench_train_path,
+                                     smi)
+    return bc7, by_path
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = _device()
@@ -2404,6 +2605,12 @@ def main() -> None:
     # Last: its rounds of back-to-back launches are not to move the device
     # times read before it.
     _phase("mode batches", _mode_batch_timing, smi, tex_blocks)
+    last_bc7, last_paths = _last_modules_phase(smi)
+    bc7_paths.update(last_bc7)
+    for k in texture_kernels:
+        k["launches_by_path"].update({
+            path: sum(counts[v] for v in k["variants"])
+            for path, counts in last_paths.items()})
     print(f"phase all: {time.perf_counter() - t0:.2f} s")
     bound, by = _bound(256 * (16 + 64 + 1), 256, ("bc7_kernel", None), sass)
     bound_train, _ = _bound(_TRAIN_BLOCKS * (16 + 64 + 1), _TRAIN_BLOCKS,

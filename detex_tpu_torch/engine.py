@@ -141,16 +141,13 @@ def decode_blocks(tex_fmt: int, blocks_u8: np.ndarray, mode_mask=_FULL,
     return out, valid.cpu().numpy()
 
 
-def _tiles_device(tex: Texture, pixel_format: int, mode_mask, flags,
-                  device) -> torch.Tensor:
-    """Decode, convert and zero invalid blocks on the device:
-    (n_blocks, 16, lanes) in convert_device's lane representation of
-    pixel_format.  Raises ConversionError where there is no conversion
-    path."""
-    src_fmt = F.texture_pixel_format(tex.format)
-    blocks = tex.data.reshape(tex.n_blocks, tex.block_size)
-    pix, valid = _decoder(tex.format)(_words(blocks, _device(device)),
-                                      mode_mask, flags)
+def _device_tiles(tex_fmt: int, pixel_format: int, words: torch.Tensor,
+                  mode_mask, flags) -> torch.Tensor:
+    """Decode an (N, k) int32 word tensor, convert the pixels and zero
+    invalid blocks on its device: (N, 16, lanes) in convert_device's lane
+    representation of pixel_format."""
+    src_fmt = F.texture_pixel_format(tex_fmt)
+    pix, valid = _decoder(tex_fmt)(words, mode_mask, flags)
     n = pix.shape[0]
     # The payload is the reference's pixel buffer: its bytes viewed as
     # lanes are the decoded format's lane representation.
@@ -160,15 +157,51 @@ def _tiles_device(tex: Texture, pixel_format: int, mode_mask, flags,
     return torch.where(valid[:, None, None], conv.reshape(n, 16, -1), 0)
 
 
-def _assemble(tiles: torch.Tensor, tex: Texture) -> torch.Tensor:
-    """(n_blocks, 16, lanes) per-block pixels -> (height, width, lanes)
+def _assemble(tiles: torch.Tensor, wb: int, hb: int, width: int,
+              height: int) -> torch.Tensor:
+    """(hb * wb, 16, lanes) per-block pixels -> (height, width, lanes)
     row-major image on the same device, partial edge blocks cropped
     (texture.c:115-143)."""
-    hb, wb = tex.height_in_blocks, tex.width_in_blocks
     lanes = tiles.shape[2]
     img = tiles.reshape(hb, wb, 4, 4, lanes).permute(0, 2, 1, 3, 4) \
-        .reshape(hb * 4, wb * 4, lanes)[:tex.height, :tex.width]
+        .reshape(hb * 4, wb * 4, lanes)[:height, :width]
     return img.contiguous()
+
+
+def _check_device_path(tex_fmt: int, pixel_format: int) -> None:
+    if not F.is_compressed(tex_fmt):
+        raise ValueError("device path requires a compressed texture")
+    src_fmt = F.texture_pixel_format(tex_fmt)
+    if C.match_conversion(src_fmt, pixel_format) is None:
+        raise C.ConversionError(
+            f"Unable to find conversion path {F.format_name(src_fmt)} -> "
+            f"{F.format_name(pixel_format)}")
+
+
+def _device_pipeline(tex_fmt: int, pixel_format: int, wb: int, hb: int,
+                     width: int, height: int):
+    """The words-on-the-device pipeline (counterpart of
+    detex_tpu/engine.py:278): a function of ((wb * hb, k) int32 words on
+    a device, mode_mask, flags) that decodes, converts, zeroes invalid
+    blocks and assembles there, returning the (height, width, lanes)
+    image in convert_device's lane representation of pixel_format.
+    Nothing goes to or from the host, so a caller with words already on
+    the card (a bench, a renderer) runs the texture path alone.  A format
+    pair with no conversion path raises ConversionError here, before
+    anything runs."""
+    _check_device_path(tex_fmt, pixel_format)
+
+    def pipeline(words: torch.Tensor, mode_mask=_FULL, flags=0
+                 ) -> torch.Tensor:
+        return _assemble(_device_tiles(tex_fmt, pixel_format, words,
+                                       mode_mask, flags),
+                         wb, hb, width, height)
+    return pipeline
+
+
+def _texture_words(tex: Texture, device) -> torch.Tensor:
+    return _words(tex.data.reshape(tex.n_blocks, tex.block_size),
+                  _device(device))
 
 
 def decompress_texture_tiled_device(tex: Texture, pixel_format: int = None,
@@ -177,20 +210,24 @@ def decompress_texture_tiled_device(tex: Texture, pixel_format: int = None,
     """Per-block tiles decoded, converted and zeroed on `device` and left
     there (texture.c:77-98): (n_blocks, 16, lanes) in convert_device's lane
     representation of pixel_format.  Their bytes equal the host path's."""
-    if not F.is_compressed(tex.format):
-        raise ValueError("device path requires a compressed texture")
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
-    return _tiles_device(tex, pixel_format, mode_mask, flags, device)
+    _check_device_path(tex.format, pixel_format)
+    return _device_tiles(tex.format, pixel_format,
+                         _texture_words(tex, device), mode_mask, flags)
 
 
 def decompress_texture_linear_device(tex: Texture, pixel_format: int = None,
                                      mode_mask=_FULL, flags=0,
                                      device="cuda") -> torch.Tensor:
-    """The whole texture as decompress_texture_tiled_device's pixels,
-    assembled row-major on `device`: (height, width, lanes)."""
-    return _assemble(decompress_texture_tiled_device(
-        tex, pixel_format, mode_mask, flags, device), tex)
+    """The whole texture decoded, converted, zeroed and assembled
+    row-major on `device` by _device_pipeline: (height, width, lanes)."""
+    if pixel_format is None:
+        pixel_format = F.texture_pixel_format(tex.format)
+    pipeline = _device_pipeline(tex.format, pixel_format,
+                                tex.width_in_blocks, tex.height_in_blocks,
+                                tex.width, tex.height)
+    return pipeline(_texture_words(tex, device), mode_mask, flags)
 
 
 def _tiles_host(tex: Texture, pixel_format: int, mode_mask, flags,
@@ -235,7 +272,9 @@ def decompress_texture_linear(tex: Texture, pixel_format: int = None,
         tiles = _tiles_host(tex, pixel_format, mode_mask, flags, backend,
                             device)
         out = CD.to_bytes(_assemble(
-            torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1), tex))
+            torch.from_numpy(tiles).reshape(tex.n_blocks, 16, -1),
+            tex.width_in_blocks, tex.height_in_blocks, tex.width,
+            tex.height))
     LAST_BACKEND = backend
     return out
 

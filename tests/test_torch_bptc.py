@@ -417,7 +417,13 @@ def test_port_imports_no_jax():
         "        'detex_tpu_torch.parallel.distributed',\n"
         "        'detex_tpu_torch.parallel.launch',\n"
         "        'detex_tpu_torch.tools.bench_scaling',\n"
-        "        'detex_tpu_torch.tools.diag_mppi_gap'} <= set(names)\n"
+        "        'detex_tpu_torch.tools.diag_mppi_gap',\n"
+        "        'detex_tpu_torch.ops.modes', 'detex_tpu_torch.cli.view',\n"
+        "        'detex_tpu_torch.cli.validate',\n"
+        "        'detex_tpu_torch.tools.mass_fuzz',\n"
+        "        'detex_tpu_torch.tools.bench_control_step',\n"
+        "        'detex_tpu_torch.tools.bench_train_step',\n"
+        "        'detex_tpu_torch.tools.bench_pipelines'} <= set(names)\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -481,6 +487,11 @@ def test_port_sources_name_no_jax_package():
              and "build" not in p.relative_to(root).parts
              and p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
     assert len(files) >= 40
+    assert {root / name for name in (
+        "ops/modes.py", "cli/view.py", "cli/validate.py",
+        "tools/mass_fuzz.py", "tools/bench_control_step.py",
+        "tools/bench_train_step.py", "tools/bench_pipelines.py")} \
+        <= set(files)
     faults = []
     for path in files + [_REPO / "chip_smoke.py"]:
         faults += list(_python_faults(path) if path.suffix == ".py"

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host modules behave exactly as
 their originals: formats, texture, hdr, convert (the host converter), io
 (KTX, DDS, raw, PNG), native (the C++ host oracle, built from the port's
-copy of its sources) and the BPTC tables npz.  The port imports none of
+copy of its sources), the BPTC tables npz, ops/bptc_encode, utils/metrics
+and ops/modes (whose every GetMode/SetMode entry is held byte-equal in
+tests/test_torch_cli_tools.py).  The port imports none of
 detex_tpu; these tests are the only place the two meet.
 """
 
@@ -352,3 +354,26 @@ def test_metrics_copy():
         assert rec.pop("t") >= 0 and rec.pop("step_s") >= 0
         lines.append(rec)
     assert lines[0] == lines[1] == {"step": 3, "loss": 1.5, "name": "x"}
+
+
+def test_modes_copy():
+    """ops/modes: the same functions, tables and entries, quirks included
+    (no SET_MODE entry for ETC2_PUNCHTHROUGH; the signed BPTC_FLOAT
+    aliases)."""
+    import detex_tpu.ops.modes as JMO
+    import detex_tpu_torch.ops.modes as PMO
+
+    def functions(m):
+        return sorted(k for k, v in vars(m).items() if callable(v)
+                      and getattr(v, "__module__", None) == m.__name__)
+
+    assert functions(PMO) == functions(JMO)
+    assert sorted(_values(PMO)) == sorted(_values(JMO))
+    for name in ("GET_MODE", "SET_MODE"):
+        port, ref = getattr(PMO, name), getattr(JMO, name)
+        assert {k: f.__name__ for k, f in port.items()} == \
+            {k: f.__name__ for k, f in ref.items()}
+    for name in ("_BPTC_FLOAT_MAP_MODE", "_BPTC_FLOAT_SET_MODE"):
+        np.testing.assert_array_equal(getattr(PMO, name), getattr(JMO, name))
+    assert PMO.get_mode_bptc_signed_float is PMO.get_mode_bptc_float
+    assert PMO.set_mode_bptc_signed_float is PMO.set_mode_bptc_float
