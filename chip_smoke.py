@@ -9,13 +9,23 @@ all at once) and drives the port's three paths:
     PyTorch version and the golden vectors, timed (also at the train
     step's 64 x 256 blocks), then 5 requests served through the
     full-width control step (ControllerConfig(): 64x64 BC7 observation,
-    8192 x 32 MPPI rollouts, bf16) by a Controller;
+    8192 x 32 MPPI rollouts, bf16) by a Controller, whose steps on the
+    card are replays of one captured CUDA graph (runtime._StepGraph, the
+    counterpart of jax.jit); each phase's BC7 count takes a Controller's
+    GRAPH_WARMUP eager steps before its capture and one launch a replay;
   * the rest of the control loop at the same width: 12 steps with 2 iLQR
     iterations (sequential backward) and 5 with the parallel-LQT backward;
     the parallel gains held to the sequential ones on one linearisation
     (float32 on damped dynamics, float64 on the random weights); iLQR on
     the card held to the port's on the CPU, and 3 steps served, on damped
     dynamics toward a random goal; a PipelinedController held to a Controller one step later;
+    "graphed control step": 5 steps of graphed Controllers (MPPI, iLQR
+    sequential and parallel LQT, 2 iterations; iLQR on damped dynamics)
+    against the eager control_step on the same noise, the generators'
+    states, a graphed PipelinedController one step behind, a replay under
+    sync debug mode "error", BC7 launches per replay, the capture's wall
+    time, the graphed and the eager step's period and host enqueue
+    (bench_control_step's rows) and the peak device memory of each;
     20 dynamics training steps on BC7-compressed observations (batch 64,
     two BC7 launches a step; the kernel's decode bit-equal to the plain
     version's and one step's loss within rtol 1e-5), then 3 iLQR steps
@@ -493,6 +503,8 @@ def _main_path(rng, smi: str) -> tuple:
     params = D.init_params(dcfg, gen, "cuda")
     goal_z = torch.zeros(dcfg.latent_dim, device="cuda")
     ctl = R.Controller(params, goal_z, cfg, seed=_SEED, device="cuda")
+    if not ctl.graphed:
+        raise AssertionError("the Controller on the card is not graphed")
     n_blocks = (dcfg.image_size // 4) ** 2
     requests = [rng.integers(-2**31, 2**31, (n_blocks, 4), np.int64)
                 .astype(np.int32) for _ in range(5)]
@@ -512,17 +524,23 @@ def _main_path(rng, smi: str) -> tuple:
         if not np.isfinite(float(ctl.diag["min_cost"])):
             raise AssertionError("min_cost is not finite")
     launches = bptc.KERNEL_LAUNCHES
-    if launches != len(requests):
+    if launches != len(requests) + R.GRAPH_WARMUP or \
+            ctl._program.launches_per_replay != 1:
         raise AssertionError(f"BC7 kernel launched {launches} times in "
-                             f"{len(requests)} control steps")
+                             f"{len(requests)} graphed control steps and "
+                             f"{R.GRAPH_WARMUP} warm-ups")
     print(f"main path: {len(requests)} control steps (64x64 BC7 obs, "
-          f"{mcfg.n_rollouts} x {mcfg.horizon} MPPI, {dcfg.compute_dtype}); "
-          f"BC7 kernel launches {launches}; last action "
+          f"{mcfg.n_rollouts} x {mcfg.horizon} MPPI, {dcfg.compute_dtype}), "
+          f"each a replay of the graph captured at the first in "
+          f"{ctl._program.capture_s:.3f} s after {R.GRAPH_WARMUP} eager "
+          f"warm-up steps; BC7 kernel launches {launches} (1 a replay); "
+          f"last action "
           f"{np.array2string(action, precision=4)}; min_cost "
           f"{float(ctl.diag['min_cost']):.6g}, ess "
           f"{float(ctl.diag['ess']):.6g}")
     print(f"step ms: median {statistics.median(step_ms):.3f} "
-          f"(each: {', '.join(f'{t:.3f}' for t in step_ms)}) on {smi}")
+          f"(each: {', '.join(f'{t:.3f}' for t in step_ms)}; the first "
+          f"includes the capture) on {smi}")
 
     # The same step with the kernel's decode and with the plain version's,
     # on the same injected noise: the image must be equal bit for bit, and
@@ -723,10 +741,12 @@ def _ilqr_reference_check(params, cfg, words, rng) -> None:
               f"(rtol 1e-4, atol 1e-5: ok)")
 
 
-def _ilqr_stages(ctl, words) -> str:
-    """One more step of `ctl` with the card synchronised around each iLQR
-    stage: host ms per stage over the step's iterations (the line search's
-    rollouts in `_forward`; its costs and the selects in the rest)."""
+def _ilqr_stages(params, cfg, words, goal) -> str:
+    """One eager control_step on `words` (a graphed Controller's replay
+    runs no Python, so it cannot be timed by stage) with the card
+    synchronised around each iLQR stage: host ms per stage over the
+    step's iterations (the line search's rollouts in `_forward`; its costs
+    and the selects in the rest)."""
     names = ("linearize", "backward", "backward_parallel", "_forward")
     spent = dict.fromkeys(names, 0.0)
     saved = {n: getattr(ILQR, n) for n in names}
@@ -741,12 +761,19 @@ def _ilqr_stages(ctl, words) -> str:
             return out
         return run
 
+    nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(_SEED)
+    words = torch.from_numpy(words).cuda()
     for n in names:
         setattr(ILQR, n, timed(n))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ctl.step(words)
+        with torch.no_grad():
+            action = R.control_step(params, nominal, gen, words, goal,
+                                    cfg)[0]
+        action.cpu()
         total = (time.perf_counter() - t0) * 1e3
     finally:
         for n in names:
@@ -789,10 +816,11 @@ def _ilqr_path(rng, smi: str, mppi_median: float) -> int:
               f"{max(float(np.abs(a).max()) for a in actions):.4g}; "
               f"{outside} of {len(actions)} actions outside "
               f"[{mcfg.action_low}, {mcfg.action_high}]")
-    if seq_launches != 12 or launches != len(requests):
+    if seq_launches != 12 + R.GRAPH_WARMUP or \
+            launches != len(requests) + 2 * R.GRAPH_WARMUP:
         raise AssertionError(f"BC7 kernel launched {seq_launches} / "
                              f"{launches} times in 12 / {len(requests)} "
-                             "iLQR control steps")
+                             "graphed iLQR control steps and their warm-ups")
     with torch.no_grad():
         _gains_check(params, cfg, torch.from_numpy(requests[0]).cuda(),
                      ctl.nominal)
@@ -817,14 +845,15 @@ def _ilqr_path(rng, smi: str, mppi_median: float) -> int:
           f"({dcfg.compute_dtype}): (ilqr_cost, MPPI min_cost) "
           f"{', '.join(f'({a:.6g}, {b:.6g})' for a, b in costs)}")
     print(f"ilqr stages, host ms with the card synchronised around each "
-          f"(one step, 2 iterations): sequential: "
-          f"{_ilqr_stages(ctl, requests[0])}; parallel LQT: "
-          f"{_ilqr_stages(pctl, requests[0])}")
+          f"(one eager control_step, 2 iterations): sequential: "
+          f"{_ilqr_stages(params, cfg, requests[0], goal_z)}; parallel LQT: "
+          f"{_ilqr_stages(params, pcfg, requests[0], goal_z)}")
     print(f"ilqr step ms: median {statistics.median(seq_ms):.3f} sequential "
           f"(10 after 2 warm-ups: {', '.join(f'{t:.3f}' for t in seq_ms)}), "
           f"{statistics.median(par_ms):.3f} parallel LQT (5: "
-          f"{', '.join(f'{t:.3f}' for t in par_ms)}), MPPI only "
-          f"{mppi_median:.3f} (control step phase) on {smi}")
+          f"{', '.join(f'{t:.3f}' for t in par_ms)}; the first includes "
+          f"the capture), MPPI only {mppi_median:.3f} (control step phase); "
+          f"graphed steps, host clock to the action on the host, on {smi}")
     return launches
 
 
@@ -852,9 +881,11 @@ def _pipelined_path(rng, smi: str) -> int:
         pipe_ms.append((time.perf_counter() - t0) * 1e3)
     pipe_actions.append(pipe.flush())
     launches = bptc.KERNEL_LAUNCHES
-    if launches != 2 * len(requests):
+    if not (sync.graphed and pipe.graphed) or \
+            launches != 2 * (len(requests) + R.GRAPH_WARMUP):
         raise AssertionError(f"BC7 kernel launched {launches} times in "
-                             f"{2 * len(requests)} control steps")
+                             f"{2 * len(requests)} graphed control steps "
+                             "and their warm-ups")
     if pipe_actions[0] is not None:
         raise AssertionError("the first pipelined step returned an action")
     for t, action in enumerate(pipe_actions[1:]):
@@ -872,6 +903,166 @@ def _pipelined_path(rng, smi: str) -> int:
           f"{statistics.median(sync_ms):.3f} (each: "
           f"{', '.join(f'{t:.3f}' for t in sync_ms)}) on {smi}")
     return launches
+
+
+# --- the control step as one captured CUDA graph ------------------------------
+
+_GRAPH_STEPS = 5
+# (label, iLQR iterations, parallel LQT, action atol): MPPI replays the
+# eager step's own kernels; iLQR is held at test_cuda_ilqr_step_matches_cpu's
+# atol 1e-5 (its batched LU runs on cuBLAS in the graph, on MAGMA eagerly).
+_GRAPH_CASES = (("MPPI", 0, False, 1e-6), ("iLQR sequential", 2, False, 1e-5),
+                ("iLQR parallel LQT", 2, True, 1e-5))
+
+
+def _eager_serve(params, goal, cfg, requests) -> tuple:
+    """control_step served eagerly over `requests`, the nominal carried and
+    the noise drawn from a generator seeded as a Controller seeds its own:
+    ([action], [diagnostics as floats], the generator)."""
+    gen = torch.Generator(device="cuda").manual_seed(_SEED)
+    nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
+                          device="cuda")
+    actions, diags = [], []
+    with torch.no_grad():
+        for words in requests:
+            action, nominal, diag = R.control_step(
+                params, nominal, gen, torch.from_numpy(words).cuda(), goal,
+                cfg)
+            actions.append(action.cpu().numpy())
+            diags.append({k: float(v) for k, v in diag.items()})
+    return actions, diags, gen
+
+
+def _peak_mib(fn) -> tuple:
+    """(fn(), peak device MiB allocated while it ran above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+def _graphed_path(smi: str) -> int:
+    """Graphed Controllers at ControllerConfig()'s full width held to the
+    eager control_step on the same noise (MPPI on the random weights; iLQR,
+    2 iterations, on the damped dynamics toward a random goal, where the
+    refinement is accepted: on the random weights every refined step is
+    rejected and the plan stays MPPI's), with the generators' states, BC7
+    launches per replay, the capture's wall time and peak memory; a
+    graphed PipelinedController one step behind the graphed Controller
+    and a replay under sync debug mode "error"; then the graphed and the
+    eager step's period and host enqueue from bench_control_step.bench.
+    Returns the BC7 launches."""
+    base = R.ControllerConfig()
+    dcfg, mcfg = base.dynamics, base.mppi
+    rng = np.random.default_rng([_SEED, 13])
+    params = D.init_params(dcfg, torch.Generator(device="cuda").manual_seed(
+        _SEED), "cuda")
+    zero = torch.zeros(dcfg.latent_dim, device="cuda")
+    goal = torch.from_numpy((0.5 * rng.standard_normal(dcfg.latent_dim))
+                            .astype(np.float32)).cuda()
+    requests = _requests(rng, _GRAPH_STEPS, dcfg)
+    bptc.KERNEL_LAUNCHES = 0
+    mppi_actions = None
+    for label, n_ilqr, parallel, atol in _GRAPH_CASES:
+        cfg = dataclasses.replace(base, n_ilqr_iterations=n_ilqr,
+                                  ilqr_parallel=parallel)
+        prm, g = (_damped(params), goal) if n_ilqr else (params, zero)
+        launches = bptc.KERNEL_LAUNCHES
+        ctl = R.Controller(prm, g, cfg, seed=_SEED, device="cuda")
+
+        def serve():
+            return [(ctl.step(w), {k: float(v) for k, v in ctl.diag.items()})
+                    for w in requests]
+        got, graph_mib = _peak_mib(serve)
+        launches = bptc.KERNEL_LAUNCHES - launches
+        (want, want_d, gen), eager_mib = _peak_mib(
+            lambda: _eager_serve(prm, g, cfg, requests))
+        prog = ctl._program
+        if not ctl.graphed or prog.launches_per_replay != 1 or \
+                launches != len(requests) + R.GRAPH_WARMUP:
+            raise AssertionError(f"graphed {label}: BC7 launched {launches} "
+                                 f"times in {len(requests)} steps")
+        diffs = [float(np.abs(a - w).max()) for (a, _), w in zip(got, want)]
+        bit = all(np.array_equal(a, w) for (a, _), w in zip(got, want))
+        if not max(diffs) <= atol:
+            raise AssertionError(f"graphed {label}: actions differ from the "
+                                 f"eager step's by {diffs} (atol {atol})")
+        rel = max(abs(d[k] - w[k]) / abs(w[k]) if w[k] else abs(d[k])
+                  for (_, d), w in zip(got, want_d) for k in w)
+        if not rel <= 1e-5 or any(set(d) != set(w)
+                                  for (_, d), w in zip(got, want_d)):
+            raise AssertionError(f"graphed {label}: diagnostics differ by "
+                                 f"{rel:.3g} (rtol 1e-5)")
+        if not torch.equal(ctl.generator.get_state(), gen.get_state()):
+            raise AssertionError(f"graphed {label}: generator state differs")
+        refined = sum(d.get("ilqr_cost", np.inf) < d["min_cost"]
+                      for _, d in got)
+        if n_ilqr and not refined:
+            raise AssertionError(f"graphed {label}: every refinement was "
+                                 f"rejected: {[d for _, d in got]}")
+        if not n_ilqr:
+            mppi_actions = [a for a, _ in got]
+        print(f"graphed control step, {label}: {len(requests)} full-width "
+              f"steps against the eager control_step on the same noise: max "
+              f"|action diff| per step {diffs} (atol {atol}), bit-equal "
+              f"{bit}; diagnostics within rtol 1e-5 (max {rel:.3g}); "
+              + (f"{refined} steps refined below MPPI's best cost; "
+                 if n_ilqr else "") +
+              f"generator state equal to the eager one's; BC7 launches "
+              f"{launches} ({R.GRAPH_WARMUP} warm-ups, "
+              f"{prog.launches_per_replay} a replay); capture "
+              f"{prog.capture_s:.3f} s (warm-ups included); peak device "
+              f"memory above what was allocated before: graphed "
+              f"{graph_mib:.1f} MiB (capture included), eager "
+              f"{eager_mib:.1f} MiB, on {smi}")
+        del ctl, prog
+
+    launches = bptc.KERNEL_LAUNCHES
+    pipe = R.PipelinedController(params, zero, base, seed=_SEED,
+                                 device="cuda")
+    piped = [pipe.step(w) for w in requests] + [pipe.flush()]
+    if piped[0] is not None:
+        raise AssertionError("the first pipelined step returned an action")
+    pdiff = max(float(np.abs(a - b).max())
+                for a, b in zip(piped[1:], mppi_actions))
+    if not pipe.graphed or not pdiff <= 1e-6:
+        raise AssertionError(f"graphed pipelined actions differ from the "
+                             f"graphed Controller's by {pdiff}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = pipe.step(requests[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    last = pipe.flush()
+    if first is not None or last is None:
+        raise AssertionError("the sync-debug pipelined step")
+    _check_action(last, mcfg, pipe.diag)
+    if bptc.KERNEL_LAUNCHES - launches != len(requests) + 1 + R.GRAPH_WARMUP:
+        raise AssertionError("graphed pipelined: BC7 launch count")
+    print(f"graphed control step, pipelined: {len(requests)} requests, "
+          f"actions equal to the graphed Controller's one step later (max "
+          f"diff {pdiff:.3g}, atol 1e-6); one replay enqueued under "
+          f"torch.cuda.set_sync_debug_mode('error') without a "
+          f"synchronising call, on {smi}")
+
+    rows = []
+    for label, n_ilqr, parallel, _ in _GRAPH_CASES:
+        cfg = dataclasses.replace(base, n_ilqr_iterations=n_ilqr,
+                                  ilqr_parallel=parallel)
+        for program in ("graph", "eager"):
+            out = BCS.bench(cfg, torch.device("cuda"), 5, 20, program)
+            rows.append((label, program, statistics.median(out["card_ms"]),
+                         statistics.median(out["host_ms"])))
+    print("graphed control step, period by CUDA events between "
+          "back-to-back steps and the host's enqueue (bench_control_step."
+          "bench, median of 20 after 5; random weights): " + "; ".join(
+              f"{label} {program} {card:.3f} ms (host {host:.3f} ms)"
+              for label, program, card, host in rows) + f", on {smi}")
+    return bptc.KERNEL_LAUNCHES
 
 
 def _clone(params):
@@ -982,9 +1173,9 @@ def _train_path(rng, smi: str) -> tuple:
     served_ms = _serve(ctl, _requests(rng, 3, ccfg.dynamics), ccfg.mppi,
                        bounds=False)[0]
     served = bptc.KERNEL_LAUNCHES
-    if served != 3:
+    if served != 3 + R.GRAPH_WARMUP:
         raise AssertionError(f"BC7 kernel launched {served} times in 3 "
-                             "control steps")
+                             "graphed control steps and their warm-ups")
     print(f"trained params: 3 iLQR control steps, ms "
           f"{', '.join(f'{t:.3f}' for t in served_ms)}; last ilqr_cost "
           f"{float(ctl.diag['ilqr_cost']):.6g}")
@@ -2283,7 +2474,7 @@ def _tool_timing(inp: dict, sass: dict, smi: str) -> dict:
     return out
 
 
-def _tool_device_us(smi: str) -> dict:
+def _tool_device_us(smi: str, sass: dict) -> dict:
     """Device time per launch at N = 1,048,576 blocks of the production BC7
     kernel and bc7_pre_kernel on the tool's blocks, of the two interleave
     kernels and their library yardsticks, and of mix_probe_kernel per
@@ -2316,8 +2507,13 @@ def _tool_device_us(smi: str) -> dict:
                   "profile)")
             continue
         if name.startswith("mix_probe"):
-            steps = len(PS._schedule(name.split()[1]))
-            rate = f"{n * steps / us / 1e6:.3f} Tops/s of the TPU census"
+            kid = ("mix_probe_kernel", name.split()[1])
+            steps = len(PS._schedule(kid[1]))
+            bound, by = _bound(n * (16 + 4), n, kid, sass)
+            rate = (f"{n * steps / us / 1e6:.3f} Tops/s of the TPU census; "
+                    f"bound {bound * 1e3:.2f} us ({by}: {sass[kid][0]} "
+                    f"integer instructions a thread, {sass[kid][2]} "
+                    f"conditional branches), {bound * 1e3 / us:.0%} of it")
         else:
             moved = n * (16 + 64 + 1 + (8 if name == "bc7_pre_decode" else 0)) \
                 if name.startswith("bc7") else 2 * x.numel() * 4
@@ -2350,7 +2546,7 @@ def _tools_phase(smi: str, sass: dict) -> list:
     paths.  Returns the kernels' JSON entries."""
     inp = _phase("tools kernel vs plain", _tool_kernels_vs_plain)
     times = _phase("tools timing", _tool_timing, inp, sass, smi)
-    device_us = _phase("tools device time", _tool_device_us, smi)
+    device_us = _phase("tools device time", _tool_device_us, smi, sass)
     launches = _tool_paths()
     err = inp["err"]
     entries = []
@@ -2481,33 +2677,40 @@ def _bench_rows(name: str, rows: list) -> None:
 
 def _bench_control_path(smi: str) -> int:
     """tools.bench_control_step --ilqr 0 2 --wallclock at ControllerConfig()'s
-    width; each row's first action is held (inside the bench) to a fresh
-    Controller's on the same seed and observation, atol 1e-6.  Returns the
-    BC7 launches."""
+    width, graph and eager rows; each row's first action is held (inside
+    the bench) to a fresh graphed Controller's on the same seed and
+    observation (atol 1e-6; 1e-5 for the eager parallel-LQT row).  Returns
+    the BC7 launches."""
     bptc.KERNEL_LAUNCHES = 0
     with contextlib.redirect_stdout(io.StringIO()):
         rows = BCS.main(["--ilqr", "0", "2", "--wallclock"])
     launches = bptc.KERNEL_LAUNCHES
     _bench_rows("bench control step", rows)
     steps = [r for r in rows if r["metric"] == "control_step_ms"]
-    if [(r["ilqr_iterations"], r["backward"]) for r in steps] != [
-            (0, "n/a"), (2, "seq"), (2, "parallel-lqt")]:
+    if [(r["ilqr_iterations"], r["backward"], r["program"]) for r in steps] \
+            != [(n, b, p) for n, b in ((0, "n/a"), (2, "seq"),
+                                       (2, "parallel-lqt"))
+                for p in ("graph", "eager")]:
         raise AssertionError("bench control step: rows missing")
     for r in steps:
         if r["bc7_launches_per_step"] != 1.0 or \
-                not r["first_action_max_diff"] <= BCS.ATOL:
+                not r["first_action_max_diff"] <= r["first_action_atol"]:
             raise AssertionError(f"bench control step: {r}")
     print("bench control step: "
-          + "; ".join(f"iLQR {r['ilqr_iterations']} {r['backward']}: median "
+          + "; ".join(f"iLQR {r['ilqr_iterations']} {r['backward']} "
+                      f"{r['program']}: median "
                       f"{r['ms_per_step']:.3f} ms (p10 {r['p10_ms']:.3f}, "
                       f"p90 {r['p90_ms']:.3f}; host {r['host_ms_per_step']:.3f})"
                       f" over {r['steps']} steps after {r['warmup']}"
                       for r in steps)
           + "; wallclock " + ", ".join(
               f"{'pipelined' if r['pipelined'] else 'sync'} "
-              f"{r['ms_per_step']:.3f} ms" for r in rows
+              f"{r['program']} {r['ms_per_step']:.3f} ms" for r in rows
               if r["metric"] == "control_step_wallclock_ms")
-          + f"; first actions within {BCS.ATOL} of a Controller's; BC7 "
+          + f"; first actions within their atol ({BCS.ATOL}; "
+          f"{BCS.ATOL_LU_ROUTED} for eager parallel LQT) of a graphed "
+          f"Controller's (max diffs "
+          f"{[r['first_action_max_diff'] for r in steps]}); BC7 "
           f"launches {launches} on {smi}")
     return launches
 
@@ -2590,6 +2793,8 @@ def main() -> None:
         "ilqr control step", _ilqr_path, rng, smi, mppi_median)
     bc7_paths["pipelined controller"] = _phase(
         "pipelined controller", _pipelined_path, rng, smi)
+    bc7_paths["graphed control step"] = _phase(
+        "graphed control step", _graphed_path, smi)
     bc7_paths["train"], bc7_paths["trained ilqr steps"] = _phase(
         "train", _train_path, rng, smi)
     bc7_paths["cli train"] = _phase("cli train", _cli_train_path)

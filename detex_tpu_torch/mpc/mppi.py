@@ -59,6 +59,14 @@ def rollout_costs(dynamics: Callable, cost: Callable, z0: torch.Tensor,
     return total
 
 
+def draw_noise(eps: torch.Tensor, generator, sigma: float) -> torch.Tensor:
+    """The rollouts' noise randn(K, H, A) * sigma from `generator`, drawn
+    into `eps` in place: mppi_step draws it so, and the captured step
+    (runtime._StepGraph) into its static buffer before each replay."""
+    torch.randn(eps.shape, generator=generator, out=eps)
+    return eps.mul_(sigma)
+
+
 def _mppi_update(eps, nominal, z0, dynamics, cost, cfg: MPPIConfig,
                  terminal_cost, n_total: int, axis=None, mesh=None):
     """MPPI update of `nominal` (H, A) from the noise `eps` (K, H, A);
@@ -129,9 +137,10 @@ def mppi_step(nominal: torch.Tensor, z0: torch.Tensor, dynamics: Callable,
                 f"n_rollouts={cfg.n_rollouts} not divisible by mesh axes "
                 f"{rollout_axis!r} total size {n_shards}")
     if eps is None:
-        eps = torch.randn((cfg.n_rollouts, h, a), generator=generator,
-                          dtype=torch.float32,
-                          device=nominal.device) * cfg.noise_sigma
+        eps = draw_noise(torch.empty((cfg.n_rollouts, h, a),
+                                     dtype=torch.float32,
+                                     device=nominal.device),
+                         generator, cfg.noise_sigma)
     if rollout_axis is None:
         return _mppi_update(eps, nominal, z0, dynamics, cost, cfg,
                             terminal_cost, cfg.n_rollouts)

@@ -7,6 +7,9 @@ and, with n_ilqr_iterations > 0, refines the plan with iLQR, with no host
 round trip inside the step.  The training step decodes its batches with
 the same kernel (decode_obs_batch).
 
+On one card (no mesh) a Controller serves the step as one captured CUDA
+graph (_StepGraph), the counterpart of the JAX Controller's jitted step.
+
 Multi-rank: with ControllerConfig.rollout_axis and a mesh
 (parallel/mesh.py), every rank decodes the observation, encodes it and
 rolls out its shard of the MPPI rollouts (mppi.mppi_step); the reductions
@@ -18,7 +21,9 @@ parameters gathered whole on every rank.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -147,11 +152,143 @@ def control_step(params, nominal, generator, obs_words, goal_z,
     return action, shifted, diag
 
 
+# Eager steps run on the capture's side stream before a capture.  They
+# make everything the step creates lazily: the BC7 library
+# (_build.load_library), the cuBLAS, cuSOLVER and cuDNN handles and plans,
+# and the caching allocator's blocks.  The first step makes them; the
+# second runs on what the first left, as every replay will.
+GRAPH_WARMUP = 2
+
+
+def step_body(params, nominal: torch.Tensor, words: torch.Tensor,
+              goal_z: torch.Tensor, eps: torch.Tensor,
+              cfg: ControllerConfig) -> tuple:
+    """The body of the captured step on its static buffers: control_step
+    with the noise `eps`, its action and diagnostics packed into one (A +
+    n_diag,) float32 tensor, then the shifted plan copied into `nominal`,
+    the last op.  That copy is the port's form of JAX's donate_argnums=(1,):
+    the next run plans from the plan this one left.  Returns (packed, the
+    diagnostics' names); unpack_step undoes the packing."""
+    action, shifted, diag = control_step(params, nominal, None, words, goal_z,
+                                         cfg, eps=eps)
+    packed = torch.cat([action, torch.stack(list(diag.values()))])
+    nominal.copy_(shifted)
+    return packed, tuple(diag)
+
+
+def unpack_step(packed: torch.Tensor, names: tuple, action_dim: int):
+    """step_body's packed output -> (action (A,), diagnostics dict of 0-d
+    tensors), views of `packed`."""
+    return packed[:action_dim], dict(zip(names,
+                                         packed[action_dim:].unbind()))
+
+
+@contextlib.contextmanager
+def _capturable_linalg():
+    """torch routes a batched LU of more than 16 matrices of 128 x 128 (the
+    parallel LQT's solves) to MAGMA, which synchronises the host with the
+    stream; nothing may synchronise while a stream is captured.  cuSOLVER's
+    and cuBLAS's routines do not.  The setting is process-global, so it
+    holds only around the warm-ups and the capture and is restored after."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+class _StepGraph:
+    """control_step as one captured CUDA graph on one card: the counterpart
+    of jax.jit(control_step, donate_argnums=(1,)) at
+    detex_tpu/mpc/runtime.py:158-160.
+
+    Static device buffers hold the observation words (N_blocks, 4), the
+    MPPI noise (K, H, A) and the nominal plan (H, A), which every replay
+    updates in place; the graph's output packs the action and the
+    diagnostics (step_body).  A run loads the words, draws the noise
+    outside the graph from the caller's generator with mppi_step's own
+    draw (mppi.draw_noise), and replays.  The graph is captured at the first
+    run, as jit compiles at the first call: GRAPH_WARMUP eager steps on a
+    side stream, with zero noise and the nominal restored after them, then
+    the capture on that stream.  A failed capture or replay raises; there
+    is no eager fallback."""
+
+    def __init__(self, params, nominal: torch.Tensor, goal_z: torch.Tensor,
+                 cfg: ControllerConfig):
+        if nominal.device.type != "cuda":
+            raise ValueError(f"a captured step needs a CUDA device, not "
+                             f"{nominal.device}")
+        mcfg, side = cfg.mppi, cfg.dynamics.image_size
+        self.params, self.nominal, self.goal_z, self.cfg = (
+            params, nominal, goal_z, cfg)
+        self.words = torch.zeros(((side // 4) ** 2, 4), dtype=torch.int32,
+                                 device=nominal.device)
+        self.eps = torch.zeros((mcfg.n_rollouts, mcfg.horizon,
+                                mcfg.action_dim), dtype=torch.float32,
+                               device=nominal.device)
+        self.graph = None
+        self.capture_s = None
+        self.launches_per_replay = None
+
+    def load(self, words: torch.Tensor, non_blocking: bool = False) -> None:
+        """Copy an observation's (N_blocks, 4) int32 words into the words
+        buffer, on the current stream."""
+        if tuple(words.shape) != tuple(self.words.shape):
+            raise ValueError(f"observation words of shape "
+                             f"{tuple(words.shape)}, expected "
+                             f"{tuple(self.words.shape)}")
+        self.words.copy_(words, non_blocking=non_blocking)
+
+    def capture(self) -> None:
+        """Warm up and capture, once; the generator is not touched and the
+        nominal is left as it was found."""
+        if self.graph is not None:
+            return
+        t0 = time.perf_counter()
+        saved = self.nominal.clone()
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.nominal.device)
+        stream.wait_stream(torch.cuda.current_stream(self.nominal.device))
+        with _capturable_linalg(), torch.cuda.stream(stream):
+            for _ in range(GRAPH_WARMUP):
+                self._body()
+            self.nominal.copy_(saved)
+            launches = bptc.KERNEL_LAUNCHES
+            with torch.cuda.graph(graph, stream=stream):
+                self._packed, self._names = self._body()
+            # The BC7 wrapper counted its launch where the capture recorded
+            # it, but no kernel ran then: every replay adds the count.
+            self.launches_per_replay = bptc.KERNEL_LAUNCHES - launches
+            bptc.KERNEL_LAUNCHES = launches
+        torch.cuda.current_stream(self.nominal.device).wait_stream(stream)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def _body(self):
+        return step_body(self.params, self.nominal, self.words, self.goal_z,
+                         self.eps, self.cfg)
+
+    def __call__(self, generator) -> tuple:
+        """Draw the noise, replay, and return (action, diagnostics) from a
+        copy of the output that later replays do not overwrite."""
+        self.capture()
+        mppi_mod.draw_noise(self.eps, generator, self.cfg.mppi.noise_sigma)
+        self.graph.replay()
+        bptc.KERNEL_LAUNCHES += self.launches_per_replay
+        return unpack_step(self._packed.clone(), self._names,
+                           self.cfg.mppi.action_dim)
+
+
 class Controller:
     """Serves control_step one observation at a time on `device` (the card
     unless device="cpu"), keeping the nominal plan and a seeded generator
-    between steps.  With a mesh, every rank of it runs its own Controller
-    on the same observations and seed (control_step's `mesh`)."""
+    between steps.  On a card with no mesh every step is one replay of a
+    captured CUDA graph (`graphed`; `nominal` is then the graph's buffer,
+    updated in place); on the CPU and with a mesh the step runs eagerly.
+    With a mesh, every rank of it runs its own Controller on the same
+    observations and seed (control_step's `mesh`): gloo's collectives copy
+    through the host, which a capture cannot hold."""
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
                  seed: int = 0, device="cuda", mesh=None):
@@ -166,17 +303,30 @@ class Controller:
         self.nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
                                    dtype=torch.float32, device=self.device)
         self.diag = None
+        self._program = None
+        if self.device.type == "cuda" and mesh is None:
+            self._program = _StepGraph(params, self.nominal, self.goal_z,
+                                       cfg)
+
+    @property
+    def graphed(self) -> bool:
+        """True where each step is one replay of a captured CUDA graph."""
+        return self._program is not None
 
     # no_grad, not inference_mode: on torch 2.11, iLQR's vmap(jacfwd(...))
     # over inference tensors raises (no batching rule for _make_dual).
     @torch.no_grad()
     def step(self, obs_words) -> np.ndarray:
         """(N_blocks, 4) int32 BC7 words (numpy or tensor) -> (A,) action."""
-        words = torch.as_tensor(obs_words, dtype=torch.int32) \
-            .to(self.device).contiguous()
+        words = torch.as_tensor(obs_words, dtype=torch.int32)
+        if self._program is not None:
+            self._program.load(words)
+            action, self.diag = self._program(self.generator)
+            return action.cpu().numpy()
         action, self.nominal, self.diag = control_step(
-            self.params, self.nominal, self.generator, words, self.goal_z,
-            self.cfg, mesh=self.mesh)
+            self.params, self.nominal, self.generator,
+            words.to(self.device).contiguous(), self.goal_z, self.cfg,
+            mesh=self.mesh)
         return action.cpu().numpy()
 
 
@@ -188,17 +338,19 @@ class PipelinedController(Controller):
     action planned from the PREVIOUS observation: while the caller
     actuates it and produces the next observation, the card decodes,
     encodes and plans on the current one.  The observation goes up from a
-    reused pinned host buffer and the action comes down into one, both
-    with non_blocking=True on the current stream, so nothing on the
-    enqueue side waits for the card; a CUDA event recorded after the
-    action's copy is what the next call waits on.  The returned action
-    lags one control period; the plans equal the synchronous
-    controller's, since both draw from the same generator stream.
+    reused pinned host buffer (into the captured step's words buffer) and
+    the action comes down into one, both with non_blocking=True on the
+    current stream; with the step one graph replay, the host's part is a
+    few calls and nothing on it waits for the card.  A CUDA event
+    recorded after the action's copy is what the next call waits on.  The
+    returned action lags one control period; the plans equal the
+    synchronous controller's, since both draw from the same generator
+    stream.
 
     Two buffers of each kind alternate: the one a step writes was last
     used two steps before, and the previous call waited on that step's
-    event.  On the CPU the same code runs with plain buffers, and the
-    copies are synchronous.
+    event.  On the CPU the same code runs eagerly with plain buffers, and
+    the copies are synchronous.
     """
 
     def __init__(self, *args, **kwargs):
@@ -221,10 +373,14 @@ class PipelinedController(Controller):
         slot, self._slot = self._slot, self._slot ^ 1
         host = self._words_host[slot]
         host.copy_(torch.as_tensor(obs_words, dtype=torch.int32))
-        words = host.to(self.device, non_blocking=True)
-        action, self.nominal, self.diag = control_step(
-            self.params, self.nominal, self.generator, words, self.goal_z,
-            self.cfg, mesh=self.mesh)
+        if self._program is not None:
+            self._program.load(host, non_blocking=True)
+            action, self.diag = self._program(self.generator)
+        else:
+            action, self.nominal, self.diag = control_step(
+                self.params, self.nominal, self.generator,
+                host.to(self.device, non_blocking=True), self.goal_z,
+                self.cfg, mesh=self.mesh)
         out = self._action_host[slot]
         out.copy_(action, non_blocking=True)
         event = None

@@ -4,27 +4,34 @@ counterpart of tools/bench_control_step.py (BASELINE.md config 5).
     python -m detex_tpu_torch.tools.bench_control_step [--ilqr 0 2]
         [--rollouts 8192] [--horizon 32] [--wallclock] [--device cpu]
 
-Times runtime.control_step at ControllerConfig()'s width -- the BC7
+Times the control step at ControllerConfig()'s width -- the BC7
 observation decode (csrc/bc7.cu), the conv encoder, MPPI (8192 rollouts x
 H = 32, bf16) and, with --ilqr N > 0, N iLQR iterations with the
-sequential and then the parallel-LQT backward.  The steps run back to back
-as the JAX tool's fori_loop runs them: the observation changes on the card
-each step (words ^ i, no host copy), the nominal plan is carried from step
-to step, the noise comes from a torch.Generator on the card, and nothing
-waits for the card before the end.  Each step's time is read from CUDA
-events recorded between steps (tools.step_times) after --warmup steps; a
-row gives the median, p10 and p90 over --steps steps, with the host's
-enqueue median beside them.  The JAX tool's two-point fori_loop marginal
-method is a TPU workaround and is left out.
+sequential and then the parallel-LQT backward -- in two programs: "graph",
+the Controller's captured CUDA graph (the counterpart of the jitted
+program the JAX tool times), captured before the timing starts; and
+"eager", runtime.control_step launching op by op (the CPU has only this
+one).  The steps run back to back as the JAX tool's fori_loop runs them:
+the observation changes on the card each step (words ^ i, no host copy;
+the graph's step copies it into the program's words buffer), the nominal
+plan is carried from step to step, the noise comes from a torch.Generator
+on the card, no action is read back, and nothing waits for the card
+before the end.  Each step's time is read from CUDA events recorded
+between steps (tools.step_times) after --warmup steps; a row gives the
+median, p10 and p90 over --steps steps, with the host's enqueue median
+beside them.  The JAX tool's two-point fori_loop marginal method is a TPU
+workaround and is left out.
 
---wallclock: a Controller against a PipelinedController, host clock, 100
-steps after 4 warm-ups, each observation uploaded from the host
-(tools/bench_control_step.py:84-107).
+--wallclock: a Controller against a PipelinedController (graphed on a
+card), host clock, 100 steps after 4 warm-ups, each observation uploaded
+from the host (tools/bench_control_step.py:84-107).
 
 Each row checks itself: the first step's action against a fresh Controller
-on the same seed and observation (atol 1e-6: the same ops on the same
-device), and --wallclock's pipelined actions against the synchronous ones
-one step later.  Prints one JSON line per row.
+(graphed on a card) on the same seed and observation (atol 1e-6: the same
+ops on the same device; 1e-5 for an eager parallel-LQT row on a card,
+whose batched LU torch routes to other libraries than the graph's), and
+--wallclock's pipelined actions against the synchronous ones one step
+later.  Prints one JSON line per row.
 """
 
 from __future__ import annotations
@@ -44,6 +51,11 @@ from detex_tpu_torch.ops import bptc
 
 BUDGET_MS = 10.0
 ATOL = 1e-6          # same ops, same device: only a reduction order may move
+# An eager parallel-LQT step runs its batched LU where torch routes it by
+# default (MAGMA or cuBLAS, by batch), the Controller's graph on cuBLAS
+# (runtime._capturable_linalg): those two are held at
+# test_cuda_ilqr_step_matches_cpu's atol.
+ATOL_LU_ROUTED = 1e-5
 WALLCLOCK_STEPS, WALLCLOCK_WARMUP = 100, 4
 _SEED = 0
 
@@ -63,36 +75,55 @@ def _setup(cfg: R.ControllerConfig, device: torch.device):
 
 @torch.no_grad()
 def bench(cfg: R.ControllerConfig, device: torch.device, warmup: int,
-          steps: int) -> dict:
-    """Per-step card and host ms of `steps` control steps after `warmup`,
-    the BC7 launches per step and the first action's distance from a
-    fresh Controller's; raises if that is over ATOL or not finite."""
+          steps: int, program: str = "eager") -> dict:
+    """Per-step card and host ms of `steps` control steps after `warmup` in
+    `program` ("graph" or "eager"), the BC7 launches per step, the
+    graph's capture seconds and the first action's distance from a fresh
+    Controller's; raises if that is over ATOL or not finite."""
     params, obs, goal = _setup(cfg, device)
     words = torch.from_numpy(obs).to(device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(_SEED)
-    carry = {"nominal": torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
-                                    device=device)}
+    carry, capture_s = {}, None
+    if program == "graph":
+        ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device)
+        prog = ctl._program
+        prog.load(words)
+        prog.capture()      # the generator and the nominal stay untouched
+        capture_s = prog.capture_s
 
-    def step(i):
-        action, carry["nominal"], _ = R.control_step(
-            params, carry["nominal"], generator, words ^ i, goal, cfg)
-        if i == 0:
-            carry["first"] = action
+        def step(i):
+            prog.load(words ^ i)
+            action, _ = prog(ctl.generator)
+            if i == 0:
+                carry["first"] = action
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(_SEED)
+        carry["nominal"] = torch.zeros(
+            (cfg.mppi.horizon, cfg.mppi.action_dim), device=device)
+
+        def step(i):
+            action, carry["nominal"], _ = R.control_step(
+                params, carry["nominal"], generator, words ^ i, goal, cfg)
+            if i == 0:
+                carry["first"] = action
 
     launches = bptc.KERNEL_LAUNCHES
     card_ms, host_ms = tools.step_times(step, device, warmup, steps)
     launches = bptc.KERNEL_LAUNCHES - launches
     first = carry["first"].cpu().numpy()
-    want = R.Controller(params, goal, cfg, seed=_SEED, device=device) \
-        .step(obs)
+    ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device)
+    want = ctl.step(obs)
+    atol = ATOL_LU_ROUTED if (program == "eager" and ctl.graphed
+                              and cfg.n_ilqr_iterations
+                              and cfg.ilqr_parallel) else ATOL
     diff = float(np.abs(first - want).max())
-    if not np.isfinite(first).all() or not diff <= ATOL:
+    if not np.isfinite(first).all() or not diff <= atol:
         raise AssertionError(f"first action {first} != a Controller's "
-                             f"{want} (max diff {diff:.3g} > {ATOL})")
+                             f"{want} (max diff {diff:.3g} > {atol})")
     return {"card_ms": card_ms, "host_ms": host_ms,
             "bc7_launches_per_step": launches / (warmup + steps),
-            "first_action": first, "first_action_max_diff": diff}
+            "capture_s": capture_s, "first_action": first,
+            "first_action_max_diff": diff, "first_action_atol": atol}
 
 
 def bench_wallclock(cfg: R.ControllerConfig, device: torch.device,
@@ -116,7 +147,8 @@ def bench_wallclock(cfg: R.ControllerConfig, device: torch.device,
         actions.append(ctl.step(obs[i % 8]))
     if pipelined:
         actions.append(ctl.flush())
-    return (time.perf_counter() - t0) * 1e3 / WALLCLOCK_STEPS, actions
+    return ((time.perf_counter() - t0) * 1e3 / WALLCLOCK_STEPS, actions,
+            "graph" if ctl.graphed else "eager")
 
 
 def _mppi(args) -> M.MPPIConfig:
@@ -144,27 +176,33 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
+    programs = ("graph", "eager") if device.type == "cuda" else ("eager",)
     for n_ilqr in args.ilqr:
         for parallel in ((False,) if n_ilqr == 0 else (False, True)):
             cfg = R.ControllerConfig(mppi=_mppi(args),
                                      n_ilqr_iterations=n_ilqr,
                                      ilqr_parallel=parallel)
-            out = bench(cfg, device, args.warmup, args.steps)
-            ms = tools.spread(out["card_ms"])
-            emit({
-                "metric": "control_step_ms", "ilqr_iterations": n_ilqr,
-                "backward": ("parallel-lqt" if parallel else "seq")
-                if n_ilqr else "n/a",
-                "ms_per_step": ms["median"], "p10_ms": ms["p10"],
-                "p90_ms": ms["p90"],
-                "host_ms_per_step": tools.spread(out["host_ms"])["median"],
-                "solves_per_s": 1e3 / ms["median"],
-                "within_10ms_budget": ms["median"] <= BUDGET_MS,
-                "warmup": args.warmup, "steps": args.steps,
-                "n_rollouts": args.rollouts, "horizon": args.horizon,
-                "bc7_launches_per_step": out["bc7_launches_per_step"],
-                "first_action": out["first_action"].tolist(),
-                "first_action_max_diff": out["first_action_max_diff"]})
+            for program in programs:
+                out = bench(cfg, device, args.warmup, args.steps, program)
+                ms = tools.spread(out["card_ms"])
+                emit({
+                    "metric": "control_step_ms", "program": program,
+                    "ilqr_iterations": n_ilqr,
+                    "backward": ("parallel-lqt" if parallel else "seq")
+                    if n_ilqr else "n/a",
+                    "ms_per_step": ms["median"], "p10_ms": ms["p10"],
+                    "p90_ms": ms["p90"],
+                    "host_ms_per_step":
+                        tools.spread(out["host_ms"])["median"],
+                    "solves_per_s": 1e3 / ms["median"],
+                    "within_10ms_budget": ms["median"] <= BUDGET_MS,
+                    "warmup": args.warmup, "steps": args.steps,
+                    "n_rollouts": args.rollouts, "horizon": args.horizon,
+                    "bc7_launches_per_step": out["bc7_launches_per_step"],
+                    "capture_s": out["capture_s"],
+                    "first_action": out["first_action"].tolist(),
+                    "first_action_max_diff": out["first_action_max_diff"],
+                    "first_action_atol": out["first_action_atol"]})
 
     if args.wallclock:
         cfg = R.ControllerConfig(mppi=_mppi(args))
@@ -179,9 +217,10 @@ def main(argv=None) -> list:
             raise AssertionError(f"pipelined actions differ from the "
                                  f"synchronous ones by {diff:.3g}")
         for pipelined in (False, True):
-            ms = out[pipelined][0]
+            ms, _, program = out[pipelined]
             emit({"metric": "control_step_wallclock_ms",
-                  "pipelined": pipelined, "ms_per_step": ms,
+                  "program": program, "pipelined": pipelined,
+                  "ms_per_step": ms,
                   "steps_per_s": 1e3 / ms,
                   "steps": WALLCLOCK_STEPS, "warmup": WALLCLOCK_WARMUP,
                   "n_rollouts": args.rollouts, "horizon": args.horizon,

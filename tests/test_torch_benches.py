@@ -82,13 +82,17 @@ def test_bench_control_step_cpu(capsys):
     assert [(r["ilqr_iterations"], r["backward"]) for r in steps] == [
         (0, "n/a"), (2, "seq"), (2, "parallel-lqt")]
     for r in steps:
+        # The CPU has only the eager program (a CUDA graph needs a card).
+        assert r["program"] == "eager" and r["capture_s"] is None
+        assert r["first_action_atol"] == BC.ATOL
         assert r["p10_ms"] <= r["ms_per_step"] <= r["p90_ms"]
         assert r["steps"] == 5 and r["first_action_max_diff"] <= BC.ATOL
         assert r["within_10ms_budget"] == (r["ms_per_step"] <= 10.0)
         assert np.isfinite(r["first_action"]).all()
     # MPPI's action stays within its bounds; iLQR's need not (ROADMAP).
     assert np.abs(steps[0]["first_action"]).max() <= 1.0
-    assert [r["pipelined"] for r in rows[3:]] == [False, True]
+    assert [(r["pipelined"], r["program"]) for r in rows[3:]] == [
+        (False, "eager"), (True, "eager")]
 
 
 def test_bench_control_step_check_bites(monkeypatch):

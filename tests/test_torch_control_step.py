@@ -298,9 +298,12 @@ def test_cuda_controller_launches_kernel_each_step(cuda, dtype):
     cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(
         cfg.dynamics, compute_dtype=dtype))
     ctl, same = _controller(cfg, cuda), _controller(cfg, cuda)
+    assert ctl.graphed and same.graphed
     launches = bptc.KERNEL_LAUNCHES
     _serve(ctl, same, cfg)
-    assert bptc.KERNEL_LAUNCHES == launches + 6
+    # One launch a step, which each replay counts, and each controller's
+    # GRAPH_WARMUP eager steps before its capture.
+    assert bptc.KERNEL_LAUNCHES == launches + 6 + 2 * TR.GRAPH_WARMUP
 
 
 @pytest.mark.cuda
@@ -323,9 +326,11 @@ def test_cuda_control_step_kernel_vs_plain_decode(cuda, monkeypatch):
 def test_cuda_pipelined_controller_matches_synchronous(cuda, ilqr):
     """On the card: the pipelined actions equal the synchronous ones one
     step later, and no step waits on the card while it enqueues (sync
-    debug mode raises on any synchronising call), with iLQR too."""
+    debug mode raises on any synchronising call; the step is a replay of
+    the captured graph), with iLQR too."""
     cfg = dataclasses.replace(_pipeline_cfg(), n_ilqr_iterations=ilqr)
     sync_actions, pipe_actions, pipe = _pipelined_vs_sync(cfg, cuda, 5)
+    assert pipe.graphed and pipe._program.graph is not None
     for t in range(1, 5):
         np.testing.assert_allclose(pipe_actions[t], sync_actions[t - 1],
                                    rtol=0, atol=1e-6)
@@ -346,12 +351,13 @@ def test_cuda_pipelined_controller_matches_synchronous(cuda, ilqr):
 @pytest.mark.cuda
 @pytest.mark.parametrize("parallel", [False, True])
 def test_cuda_ilqr_step_finite(cuda, parallel):
-    """iLQR steps on the card: finite actions and costs, one BC7 launch a
-    step.  The refined plan is not clipped to the MPPI action bounds (nor
-    is it in the JAX package), so the bounds are not held."""
+    """iLQR steps on the card, captured: finite actions and costs, one BC7
+    launch a step.  The refined plan is not clipped to the MPPI action
+    bounds (nor is it in the JAX package), so the bounds are not held."""
     cfg = dataclasses.replace(tentry._small_cfg(), n_ilqr_iterations=2,
                               ilqr_parallel=parallel)
     ctl = _controller(cfg, cuda)
+    assert ctl.graphed
     launches = bptc.KERNEL_LAUNCHES
     for i in range(3):
         action = ctl.step(_obs_words((cfg.dynamics.image_size // 4) ** 2,
@@ -359,7 +365,8 @@ def test_cuda_ilqr_step_finite(cuda, parallel):
         assert action.shape == (cfg.mppi.action_dim,)
         assert np.isfinite(action).all()
         assert all(np.isfinite(float(v)) for v in ctl.diag.values())
-    assert bptc.KERNEL_LAUNCHES == launches + 3
+    # One launch a replay, and the GRAPH_WARMUP eager steps of the capture.
+    assert bptc.KERNEL_LAUNCHES == launches + 3 + TR.GRAPH_WARMUP
 
 
 def _ilqr_step_inputs(parallel, seed):

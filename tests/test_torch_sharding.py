@@ -678,7 +678,10 @@ def test_cuda_sharded_control_step_one_rank(cuda_world):
             .astype(np.int32)
         np.testing.assert_allclose(sharded.step(words), ctl.step(words),
                                    rtol=0, atol=1e-6)
-    assert bptc.KERNEL_LAUNCHES == launches + 6
+    # One launch a step each; the unsharded controller's steps are replays
+    # of its graph, captured after GRAPH_WARMUP eager steps.
+    assert ctl.graphed and not sharded.graphed
+    assert bptc.KERNEL_LAUNCHES == launches + 6 + TR.GRAPH_WARMUP
     words = torch.as_tensor(words, device=cuda_world)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
