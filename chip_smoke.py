@@ -26,10 +26,17 @@ all at once) and drives the port's three paths:
     sync debug mode "error", BC7 launches per replay, the capture's wall
     time, the graphed and the eager step's period and host enqueue
     (bench_control_step's rows) and the peak device memory of each;
-    20 dynamics training steps on BC7-compressed observations (batch 64,
-    two BC7 launches a step; the kernel's decode bit-equal to the plain
-    version's and one step's loss within rtol 1e-5), then 3 iLQR steps
-    served with the trained parameters; and the dtx-train CLI;
+    20 dynamics training steps on BC7-compressed observations through
+    train_loop.train, each step one replay of the captured train graph
+    (_TrainGraph; batch 64, two BC7 launches a replay and GRAPH_WARMUP
+    eager warm-up steps before the capture; the kernel's decode bit-equal
+    to the plain version's and one step's loss within rtol 1e-5), then 3
+    iLQR steps served with the trained parameters; "graphed train step":
+    5 graphed steps against the eager card step on the same batches (bit-
+    equal with deterministic cuDNN; at the defaults the differences
+    printed, the losses held at rtol 1e-5), launches a replay, capture s,
+    peak memory, a replay under sync debug mode "error", the graphed and
+    the eager step's period and host enqueue; and the dtx-train CLI;
   * the multi-device layer ("multi-device" phases): at one rank over NCCL
     in this process, 5 full-width control steps sharded over "dp" held to
     the unsharded Controller (atol 1e-6) and both timed by CUDA events,
@@ -49,14 +56,23 @@ all at once) and drives the port's three paths:
     under 5 mode masks), then one 4096x4096 texture per format (a 4K mip,
     1,048,576 blocks) through engine.decompress_texture_linear(
     backend="device"), which decodes, converts the pixels and assembles on
-    the card, BPTC (BC7) among them, and a BC3, an ETC2_EAC, an EAC_RG11
-    and a BPTC_FLOAT .ktx through the dtx-convert CLI, each byte-equal to
-    the same call with the plain versions swapped in; the calls that
+    the card (each call the first of its key, which runs eagerly: a key is
+    captured as a CUDA graph at its second call), BPTC (BC7) among them, and a BC3, an ETC2_EAC, an EAC_RG11 and a
+    BPTC_FLOAT .ktx through the dtx-convert CLI, each byte-equal to the
+    same call with the plain versions swapped in, run eagerly; the calls that
     convert (BC6H to half float, 16-bit, 8-bit and HDR targets, RGTC1 and
     ETC2_EAC to other formats) also byte-equal to the torch backend, which
     converts on the host; every kernel timed against its plain version,
     its device time per launch read by CUDA events (torch.profiler's
     reading beside it), and stage breakdowns of the texture calls;
+    "graphed texture pipelines": all 19 variants' 4096^2 textures through
+    their pipelines, linear and tiled, eager, captured and replayed,
+    against the eager pipeline and the native runtime, one launch a
+    replay; a BPTC_FLOAT -> RGBA8 call's one-shot (eager), capturing and
+    replayed wall time and peak memory, and the reserve its graph keeps;
+    dtx-convert -d on a whole mip chain, which captures nothing; a BC6H
+    pipeline and a conversion replayed under sync debug mode "error"; the
+    1024^2 ETC2_EAC pipeline's graphed and eager period and host enqueue;
   * the tools (detex_tpu_torch/tools/): the BC7 pre-gathered-partition,
     lane-interleave and ALU mix-probe kernels held bit-exact against their
     plain versions at the tools' 65,536 blocks (bc7_pre also against the
@@ -80,11 +96,13 @@ all at once) and drives the port's three paths:
     BPTC_FLOAT files (PNG equal to the CPU's); tools.mass_fuzz at 262,144
     blocks per family; and the three benches at their defaults:
     bench_pipelines (a 1024^2 ETC2_EAC texture to RGBA8 through
-    engine._device_pipeline, byte-equal to the native decode; BC6H to the
-    latent encoder, batch 64, equal to the plain BC6H version's),
+    engine._device_pipeline, graphed and eager, byte-equal to the native
+    decode; BC6H to the latent encoder, batch 64, equal to the plain BC6H
+    version's),
     bench_control_step --ilqr 0 2 --wallclock (each row's first action
-    within 1e-6 of a fresh Controller's) and bench_train_step (the first
-    loss within rtol 1e-5 of dynamics.train_step's); each phase requires
+    within 1e-6 of a fresh Controller's) and bench_train_step (graph and
+    eager rows, each first loss within rtol 1e-5 of dynamics.train_step's);
+    each phase requires
     its kernels' launch counts to rise.
 
 Every kernel's time is printed beside its bound: the larger of its bytes
@@ -103,6 +121,7 @@ printing a result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -121,7 +140,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from detex_tpu_torch import _build, engine, entry, hdr
+from detex_tpu_torch import _build, engine, entry, graphs, hdr
 from detex_tpu_torch import convert as C
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch import formats as F
@@ -1106,43 +1125,42 @@ def _train_compare(params, optimizer, cfg) -> None:
 
 
 def _train_path(rng, smi: str) -> tuple:
-    """20 full-width training steps on BC7-compressed observations, then 3
-    iLQR control steps with the trained params.  Returns the BC7 launches
-    of the two."""
+    """20 full-width training steps on BC7-compressed observations through
+    train_loop.train, each step one replay of the captured train graph
+    (_TrainGraph) after GRAPH_WARMUP eager warm-ups, then 3 iLQR control
+    steps with the trained params.  Returns the BC7 launches of the two."""
     cfg = TL.TrainConfig(dynamics=D.DynamicsConfig(), batch_size=_TRAIN_BATCH,
                          n_steps=20, compressed_obs=True)
     env = TL.SyntheticVisualEnv(cfg.dynamics, cfg.seed, compressed=True)
     stream = io.StringIO()
     timings = []
-    make_train_step = TL.make_train_step
+    call = TL._TrainGraph.__call__
 
-    def timed_make_train_step(*args, **kwargs):
-        step = make_train_step(*args, **kwargs)
-
-        def timed(params, batch):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            out = step(params, batch)
-            end.record()
-            timings.append((start, end, time.perf_counter() - t0))
-            return out
-        return timed
+    def timed(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = call(self)
+        end.record()
+        timings.append((start, end, time.perf_counter() - t0))
+        return out
 
     bptc.KERNEL_LAUNCHES = 0
-    TL.make_train_step = timed_make_train_step
+    TL._TrainGraph.__call__ = timed
     try:
         params, optimizer, last = TL.train(cfg, MetricsLogger(stream), env,
                                            device="cuda")
     finally:
-        TL.make_train_step = make_train_step
+        TL._TrainGraph.__call__ = call
     launches = bptc.KERNEL_LAUNCHES
     torch.cuda.synchronize()
     losses = [json.loads(x)["loss"] for x in stream.getvalue().splitlines()]
-    if launches != 2 * cfg.n_steps:
+    if launches != 2 * (cfg.n_steps + R.GRAPH_WARMUP) or \
+            len(timings) != cfg.n_steps:
         raise AssertionError(f"BC7 kernel launched {launches} times in "
-                             f"{cfg.n_steps} train steps")
+                             f"{len(timings)} graphed train steps and "
+                             f"{R.GRAPH_WARMUP} warm-ups")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}")
     step_ms = [s.elapsed_time(e) for s, e, _ in timings][-10:]
@@ -1153,9 +1171,10 @@ def _train_path(rng, smi: str) -> tuple:
     side = cfg.dynamics.image_size
     print(f"train: {cfg.n_steps} steps, batch {cfg.batch_size} of "
           f"{side}x{side} BC7 observations (DynamicsConfig(), "
-          f"{cfg.dynamics.compute_dtype}); "
-          f"BC7 kernel launches {launches}; logged losses {losses}")
-    print(f"train step ms (CUDA events, last 10): median "
+          f"{cfg.dynamics.compute_dtype}), each a replay of the train "
+          f"graph; BC7 kernel launches {launches} (2 a step, "
+          f"{R.GRAPH_WARMUP} warm-up steps); logged losses {losses}")
+    print(f"graphed train step ms (CUDA events, last 10): median "
           f"{statistics.median(step_ms):.3f} (each: "
           f"{', '.join(f'{t:.3f}' for t in step_ms)}); host enqueue median "
           f"{statistics.median(host_ms):.3f} ms, "
@@ -1180,6 +1199,156 @@ def _train_path(rng, smi: str) -> tuple:
           f"{', '.join(f'{t:.3f}' for t in served_ms)}; last ilqr_cost "
           f"{float(ctl.diag['ilqr_cost']):.6g}")
     return launches, served
+
+
+# --- the train step as one captured CUDA graph -------------------------------
+
+_GRAPH_TRAIN_STEPS = 5
+
+
+class _Batches:
+    """An env that serves the given batches in turn (train's per-step rng
+    is not used): the graphed and the eager runs see the same bytes."""
+
+    def __init__(self, batches):
+        self.batches = iter(batches)
+
+    def sample_batch(self, rng, batch_size):
+        return next(self.batches)
+
+
+def _eager_train(cfg, batches) -> tuple:
+    """train()'s loop run eagerly on the card (make_train_step) over
+    `batches`: (losses, params, optimizer)."""
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    params = D.init_params(cfg.dynamics, gen, "cuda")
+    opt = D.make_optimizer(params, cfg.lr)
+    step = TL.make_train_step(cfg.dynamics, opt, cfg.compressed_obs)
+    losses = []
+    for b in batches:
+        params, loss = step(params, {k: torch.as_tensor(v).cuda()
+                                     for k, v in b.items()})
+        losses.append(float(loss))
+    return losses, params, opt
+
+
+def _graphed_train(cfg, batches) -> tuple:
+    """train() on the card (one graph replay a step) over `batches`:
+    (losses, params, optimizer, the _TrainGraph)."""
+    call, seen = TL._TrainGraph.__call__, []
+
+    def recorded(self):
+        loss = call(self)
+        seen.append((self, float(loss)))
+        return loss
+    TL._TrainGraph.__call__ = recorded
+    try:
+        params, opt, _ = TL.train(cfg, MetricsLogger(io.StringIO()),
+                                  _Batches(batches), device="cuda")
+    finally:
+        TL._TrainGraph.__call__ = call
+    return [x for _, x in seen], params, opt, seen[0][0]
+
+
+def _state_diff(a, b) -> tuple:
+    """(bit-equal, max |difference|) of two trainings' parameters, moments
+    and step counts."""
+    pairs = list(zip(TL._step_state(*a), TL._step_state(*b), strict=True))
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max(float((x.float() - y.float()).abs().max()) for x, y in pairs))
+
+
+def _graphed_train_path(smi: str) -> int:
+    """train() on the card, each step one replay of the captured train
+    graph, against the eager card step (make_train_step) on the same
+    batches: batch 64 of 64x64 BC7 observations, DynamicsConfig(), bf16,
+    _GRAPH_TRAIN_STEPS steps from the same seed.  With cuDNN held to its
+    deterministic algorithms the losses, parameters, moments and step
+    counts must be bit-equal; at the default settings they are printed
+    and the losses held at rtol 1e-5 (cuDNN may pick weight-gradient
+    algorithms that sum in another order from run to run).  Also: 2 BC7
+    launches a replay, the capture's seconds, the peak device memory of
+    each, a replay under sync debug mode "error", and the graphed and the
+    eager step's period and host enqueue (bench_train_step.bench).
+    Returns the BC7 launches."""
+    cfg = TL.TrainConfig(dynamics=D.DynamicsConfig(), batch_size=_TRAIN_BATCH,
+                         n_steps=_GRAPH_TRAIN_STEPS, compressed_obs=True)
+    env = TL.SyntheticVisualEnv(cfg.dynamics, cfg.seed, compressed=True)
+    batches = [env.sample_batch(np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, i])), cfg.batch_size)
+        for i in range(cfg.n_steps)]
+    bptc.KERNEL_LAUNCHES = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_losses, g_params, g_opt, prog = _graphed_train(cfg, batches)
+        e_losses, e_params, e_opt = _eager_train(cfg, batches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = bptc.KERNEL_LAUNCHES
+    bit, diff = _state_diff((g_params, g_opt), (e_params, e_opt))
+    if g_losses != e_losses or not bit:
+        raise AssertionError(f"graphed train step (deterministic cuDNN): "
+                             f"losses {g_losses} against {e_losses}, state "
+                             f"max diff {diff}")
+    if prog.launches_per_replay != 2 or launches != 2 * (
+            2 * cfg.n_steps + R.GRAPH_WARMUP):
+        raise AssertionError(f"graphed train step: BC7 launches {launches}, "
+                             f"{prog.launches_per_replay} a replay")
+    print(f"graphed train step: {cfg.n_steps} steps of train() (batch "
+          f"{cfg.batch_size}, 64x64 BC7, DynamicsConfig(), bf16), each a "
+          f"replay, against the eager card step on the same batches with "
+          f"cuDNN deterministic: losses and parameters, moments and step "
+          f"counts bit-equal; losses {g_losses}; BC7 launches {launches} "
+          f"({R.GRAPH_WARMUP} warm-ups and {prog.launches_per_replay} a "
+          f"replay, then the eager steps' 2 each); capture "
+          f"{prog.capture_s:.3f} s (warm-ups included), on {smi}")
+
+    (g_losses, g_params, g_opt, _), graph_mib = _peak_mib(
+        lambda: _graphed_train(cfg, batches))
+    (e_losses, e_params, e_opt), eager_mib = _peak_mib(
+        lambda: _eager_train(cfg, batches))
+    bit, diff = _state_diff((g_params, g_opt), (e_params, e_opt))
+    np.testing.assert_allclose(g_losses, e_losses, rtol=1e-5)
+    print(f"graphed train step, default cuDNN settings: losses "
+          f"{'bit-equal' if g_losses == e_losses else 'within rtol 1e-5'} "
+          f"(graphed {g_losses}, eager {e_losses}); state bit-equal {bit}, "
+          f"max |diff| {diff:.3g}; peak device memory above what was "
+          f"allocated before: graphed {graph_mib:.1f} MiB (capture "
+          f"included), eager {eager_mib:.1f} MiB, on {smi}")
+
+    params = D.init_params(cfg.dynamics, torch.Generator(
+        device="cuda").manual_seed(1), "cuda")
+    graph = TL._TrainGraph(params, D.make_optimizer(params), cfg.dynamics,
+                           cfg.batch_size, True)
+    graph.load(batches[0])
+    graph()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.load(batches[1])
+        loss = graph()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not np.isfinite(float(loss)):
+        raise AssertionError("the sync-debug train replay's loss")
+    rows = []
+    for program in ("graph", "eager"):
+        out = BTS.bench(cfg.dynamics, cfg.batch_size, torch.device("cuda"),
+                        5, 20, program)
+        card, host = out["times"]["compressed"]
+        rows.append((program, statistics.median(card),
+                     statistics.median(host), out["launches_per_step"]))
+    if any(r[3] != 2.0 for r in rows):
+        raise AssertionError(f"graphed train step bench rows: {rows}")
+    print("graphed train step: one replay with its batch's upload enqueued "
+          "under torch.cuda.set_sync_debug_mode('error'); period by CUDA "
+          "events between back-to-back steps and the host's enqueue "
+          "(bench_train_step.bench, median of 20 after 5; batch 64, "
+          "DynamicsConfig(), bf16): " + "; ".join(
+              f"{program} {card:.3f} ms (host {host:.3f} ms)"
+              for program, card, host, _ in rows) + f", on {smi}")
+    return bptc.KERNEL_LAUNCHES
 
 
 def _cli_train_path() -> int:
@@ -1690,13 +1859,31 @@ def _plain(variant: str):
 
 
 @contextlib.contextmanager
+def _eager_programs():
+    """The texture programs (graphs.Program: the engine's pipelines and
+    the uncompressed conversion) run their bodies eagerly inside the block,
+    with no graph kept from before it or made in it: the reference runs of
+    the plain versions, which a graph of the kernels' must not answer."""
+    call = graphs.Program.__call__
+    graphs._PROGRAMS.clear()
+    graphs.Program.__call__ = lambda self, x: self.fn(x)
+    try:
+        yield
+    finally:
+        graphs.Program.__call__ = call
+        graphs._PROGRAMS.clear()
+
+
+@contextlib.contextmanager
 def _plain_versions():
-    """Swap every texture-path wrapper for its plain version."""
+    """Swap every texture-path wrapper for its plain version, run eagerly
+    (_eager_programs)."""
     saved = {v: _wrapper(v) for v in _VARIANTS}
     try:
         for v in _VARIANTS:
             setattr(_VARIANTS[v][1], _VARIANTS[v][2], _plain(v))
-        yield
+        with _eager_programs():
+            yield
     finally:
         for v, fn in saved.items():
             setattr(_VARIANTS[v][1], _VARIANTS[v][2], fn)
@@ -1841,6 +2028,7 @@ def _texture_path(blocks: dict, smi: str) -> dict:
     launch counts."""
     calls = {v: _texture_calls(v, b) for v, b in blocks.items()}
     _reset_counts()
+    graphs._PROGRAMS.clear()
     outs, wall = {}, {}
     for variant, cs in calls.items():
         for label, tex, pf, params in cs:
@@ -1859,6 +2047,7 @@ def _texture_path(blocks: dict, smi: str) -> dict:
             if out.dtype != np.uint8 or out.shape != (want,):
                 raise AssertionError(f"{variant} {label}: bad output "
                                      f"{out.dtype} {out.shape}")
+            # Each call is its key's first, which runs eagerly: one launch.
             added = {k: n - before[k] for k, n in _counts().items()}
             if added[variant] != 1 or sum(added.values()) != 1:
                 raise AssertionError(f"{variant} {label}: launches {added}")
@@ -1886,8 +2075,9 @@ def _texture_path(blocks: dict, smi: str) -> dict:
                                          "torch backends differ")
     print(f"main path (texture engine): {sum(map(len, calls.values()))} "
           f"decompress_texture_linear(backend='device') calls on "
-          f"{_TEX}x{_TEX} textures, one launch of their kernel each, "
-          f"byte-equal to the plain versions (no launches); {len(host_s)} "
+          f"{_TEX}x{_TEX} textures, each the first of its key, run eagerly "
+          f"(one launch of its kernel), byte-equal to the plain versions "
+          f"(no launches); {len(host_s)} "
           f"of them byte-equal to the torch backend "
           f"({', '.join(f'{v} {lb}' for v, lb in host_s)}); launches "
           f"{launches}")
@@ -1897,19 +2087,187 @@ def _texture_path(blocks: dict, smi: str) -> dict:
         host = host_s.get((variant, label))
         print(f"texture wall: {variant} {_TEX}x{_TEX} -> {label}: "
               f"{sec * 1e3:.3f} ms host bytes in to host bytes out, "
-              f"{_N_BIG / sec:.4g} blocks/s (first call of its kind "
-              f"included)" + ("" if host is None else
+              f"{_N_BIG / sec:.4g} blocks/s (its key's first call, "
+              f"eager)" + ("" if host is None else
                               f"; torch backend {host * 1e3:.1f} ms")
               + f" on {smi}")
+    return launches
+
+
+def _graphed_texture_path(blocks: dict, smi: str) -> dict:
+    """Every variant's 4096^2 texture (BPTC's of the tools' blocks, modes
+    uniform) in its native format through its pipeline
+    (engine._device_pipeline), linear and tiled, three times: the key's
+    first call (eager), its second (warm-ups, capture, replay) and a third
+    (a replay), each byte-equal to the eager pipeline
+    (engine._pipeline_body) on the same words and to the native runtime,
+    one kernel launch a replay.  Then a 4096^2 BPTC_FLOAT -> RGBA8
+    decompress_texture_linear(backend="device") called three times: the
+    one-shot (eager) call against the capturing call and a replay, by wall
+    time and peak device memory, and the reserve the kept graph holds;
+    dtx-convert -d on a BPTC_FLOAT .ktx with its whole mip chain (4096^2
+    down to 1x1; every level a key called once) and the graphs and reserve
+    the cache keeps after it; a BC6H -> RGBA8 replay and a u16 -> f16
+    conversion replay under sync debug mode "error"; and the 1024^2
+    ETC2_EAC -> RGBA8 pipeline's period and host enqueue, graphed and
+    eager (bench_pipelines.bench_etc_pipeline).  Returns the launch
+    counts."""
+    _reset_all_counts()
+    graphs._PROGRAMS.clear()
+    checked = 0
+    textures = [(v, _texture_calls(v, b)[0][1]) for v, b in blocks.items()]
+    textures.append(("bptc", Texture.new(F.BY_NAME["BPTC"].fmt,
+                                         MP.tool_blocks(_N_BIG), _TEX, _TEX)))
+    for variant, tex in textures:
+        pf = F.texture_pixel_format(tex.format)
+        words = engine._texture_words(tex, "cuda")
+        for tiled, native_fn in ((False, engine.decompress_texture_linear),
+                                 (True, engine.decompress_texture_tiled)):
+            pipeline = engine._device_pipeline(
+                tex.format, pf, tex.width_in_blocks, tex.height_in_blocks,
+                tex.width, tex.height, tiled)
+            before = _all_counts()
+            outs = [CD.to_bytes(pipeline(words)) for _ in range(3)]
+            added = {k: n - before[k] for k, n in _all_counts().items()}
+            eager = CD.to_bytes(engine._pipeline_body(
+                tex.format, pf, tex.width_in_blocks, tex.height_in_blocks,
+                tex.width, tex.height, tiled, _FULL, 0)(words))
+            native = native_fn(tex, None, backend="native")
+            prog = graphs._PROGRAMS[next(reversed(graphs._PROGRAMS))]
+            if prog.graph is None or prog.graph.launches != {variant: 1} or \
+                    added[variant] != R.GRAPH_WARMUP + 3 or \
+                    sum(added.values()) != added[variant]:
+                raise AssertionError(f"graphed {variant} tiled={tiled}: "
+                                     f"launches {added}, a replay "
+                                     f"{prog.graph and prog.graph.launches}")
+            if not (all(np.array_equal(o, eager) for o in outs) and
+                    np.array_equal(outs[0], native)):
+                raise AssertionError(f"graphed {variant} tiled={tiled}: "
+                                     f"differs from the eager pipeline or "
+                                     f"the native runtime")
+            checked += 1
+    launches = _all_counts()
+    print(f"graphed texture pipelines: {checked} pipelines ({len(textures)} "
+          f"variants x linear and tiled, {_TEX}x{_TEX}, native format), "
+          f"each called three times (eager, capture, replay), each call "
+          f"byte-equal to the eager pipeline and to the native runtime; "
+          f"one launch a replay (the eager check's launch beside it); "
+          f"launches {launches}")
+
+    tex = _texture_calls("bptc_float", blocks["bptc_float"])[0][1]
+    graphs._PROGRAMS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, mib = _peak_mib(lambda: engine.decompress_texture_linear(
+            tex, F.RGBA8, backend="device", device="cuda"))
+        calls.append((time.perf_counter() - t0, mib, out))
+    if not all(np.array_equal(c[2], calls[0][2]) for c in calls):
+        raise AssertionError("the BPTC_FLOAT -> RGBA8 calls differ")
+    (prog,) = graphs._PROGRAMS.values()
+    capture_s = prog.graph.capture_s
+    del prog                # the cache holds the program's only reference
+    torch.cuda.empty_cache()
+    kept_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    graphs._PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    freed_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    print(f"graphed texture pipelines: {_TEX}x{_TEX} BPTC_FLOAT -> RGBA8, "
+          f"decompress_texture_linear(backend='device'), host bytes in to "
+          f"host bytes out: one-shot (the key's first call, eager) "
+          f"{calls[0][0] * 1e3:.3f} ms, peak {calls[0][1]:.1f} MiB above "
+          f"what was allocated before; second call (warm-ups, capture "
+          f"{capture_s * 1e3:.3f} ms, replay) "
+          f"{calls[1][0] * 1e3:.3f} ms, peak {calls[1][1]:.1f} MiB; "
+          f"replay {calls[2][0] * 1e3:.3f} ms, peak {calls[2][1]:.1f} MiB; "
+          f"the kept graph's reserve after empty_cache "
+          f"{kept_mib:.1f} MiB ({freed_mib:.1f} MiB once dropped), on {smi}")
+
+    mips, side = [], _TEX
+    fmt = F.BY_NAME["BPTC_FLOAT"].fmt
+    while side >= 1:
+        n = (-(-side // 4)) ** 2
+        mips.append(Texture.new(fmt, blocks["bptc_float"][:n], side, side))
+        side //= 2
+    graphs._PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "mips.ktx"
+        tio.save_ktx(mips, str(src))
+        t0 = time.perf_counter()
+        cli_convert.main(["-q", "-d", str(src), str(Path(tmp) / "k.ktx")])
+        wall = time.perf_counter() - t0
+        kept = len(graphs._PROGRAMS)
+        captured = sum(p.graph is not None
+                       for p in graphs._PROGRAMS.values())
+        torch.cuda.empty_cache()
+        kept_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        cli_convert.main(["-q", "-d", "--backend", "native", str(src),
+                          str(Path(tmp) / "n.ktx")])
+        same = (Path(tmp) / "k.ktx").read_bytes() == \
+            (Path(tmp) / "n.ktx").read_bytes()
+    if not same or captured:
+        raise AssertionError(f"mip chain: equal to the native run {same}, "
+                             f"graphs captured {captured}")
+    print(f"graphed texture pipelines: dtx-convert -d on a {_TEX}x{_TEX} "
+          f"BPTC_FLOAT .ktx with {len(mips)} mip levels -> FLOAT_RGB16, "
+          f"byte-equal to --backend native: {wall * 1e3:.1f} ms, "
+          f"{kept} programs cached, {captured} graphs captured, reserve "
+          f"after empty_cache {kept_mib:.1f} MiB above before, on {smi}")
+    graphs._PROGRAMS.clear()
+
+    words = engine._texture_words(tex, "cuda")
+    pipeline = engine._device_pipeline(tex.format, F.RGBA8,
+                                       tex.width_in_blocks,
+                                       tex.height_in_blocks, tex.width,
+                                       tex.height)
+    arr = torch.from_numpy(np.random.default_rng(3).integers(
+        -2**15, 2**15, (1 << 20, 4), np.int64).astype(np.int16)).cuda()
+    for _ in range(2):      # each key's eager call, then its capture
+        pipeline(words)
+        CD.convert_pixels_graphed(arr, F.RGBX16, F.FLOAT_RGBX16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = pipeline(words)
+        half = CD.convert_pixels_graphed(arr, F.RGBX16, F.FLOAT_RGBX16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = CD.convert_pixels_device(arr, F.RGBX16, F.FLOAT_RGBX16)
+    if not torch.equal(half, want) or not np.array_equal(
+            CD.to_bytes(img), engine.decompress_texture_linear(
+                tex, F.RGBA8, backend="native")):
+        raise AssertionError("the sync-debug replays differ")
+    graphs._PROGRAMS.clear()
+
+    args = argparse.Namespace(side=1024, warmup=10, steps=100)
+    rows = [BPL.bench_etc_pipeline(torch.device("cuda"), args, program)
+            for program in ("graph", "eager")]
+    if any(r["etc2_eac_launches_per_step"] != 1.0 for r in rows):
+        raise AssertionError(f"graphed texture pipelines: bench rows {rows}")
+    print("graphed texture pipelines: a BC6H -> RGBA8 replay and a "
+          "RGBX16 -> FLOAT_RGBX16 conversion replay enqueued under "
+          "torch.cuda.set_sync_debug_mode('error'), byte-equal; 1024^2 "
+          "ETC2_EAC -> RGBA8 period by CUDA events between back-to-back "
+          "steps and the host's enqueue (bench_pipelines, median of 100 "
+          "after 10): " + "; ".join(
+              f"{r['program']} {r['ms_per_1024sq_texture']:.4f} ms (p10 "
+              f"{r['p10_ms']:.4f}, p90 {r['p90_ms']:.4f}; host "
+              f"{r['host_ms_per_step']:.4f} ms)" for r in rows)
+          + f"; capture {rows[0]['capture_s']:.3f} s, on {smi}")
     return launches
 
 
 def _cli_path(blocks: dict) -> None:
     """dtx-convert -d (the device backend) on a 4096^2 BC3, ETC2_EAC,
     EAC_RG11 and BPTC_FLOAT .ktx written with save_ktx, each against the
-    same run with the plain versions and with one launch of its kernel and
-    no other; BPTC_FLOAT (written as FLOAT_RGB16) also against
-    --backend torch."""
+    same run with the plain versions and with its kernel's launches alone
+    (every call its key's first: one eager launch); BPTC_FLOAT
+    (written as FLOAT_RGB16) also against --backend torch."""
     for variant in ("bc3", "etc2_eac", "eac_rg11", "bptc_float"):
         family = _VARIANTS[variant][3]
         with tempfile.TemporaryDirectory() as tmp:
@@ -1917,6 +2275,7 @@ def _cli_path(blocks: dict) -> None:
             tio.save_ktx([Texture.new(F.BY_NAME[family].fmt, blocks[variant],
                                       _TEX, _TEX)], str(src))
             _reset_counts()
+            graphs._PROGRAMS.clear()
             cli_convert.main(["-q", "-d", str(src),
                               str(Path(tmp) / "k.ktx")])
             launches = _counts()
@@ -1937,7 +2296,8 @@ def _cli_path(blocks: dict) -> None:
         print(f"cli: dtx-convert -d on a {_TEX}x{_TEX} {family} .ktx "
               f"({len(k)} B out) byte-equal to the plain run"
               + (" and to --backend torch" if variant == "bptc_float"
-                 else "") + f"; {variant} kernel launches 1")
+                 else "") + f"; {variant} kernel launches "
+              f"{launches[variant]} (the key's first call, eager)")
 
 
 def _bc_timing(blocks: dict) -> dict:
@@ -2087,13 +2447,15 @@ def _texture_breakdown(blocks: dict, smi: str) -> None:
 
 def _bptc_texture(smi: str) -> int:
     """A 4096^2 BPTC (BC7) texture of the tool's blocks (modes uniform over
-    0-7) through engine.decompress_texture_linear(backend="device"): one
-    launch of the BC7 kernel, bytes equal to the same call with the plain
-    version swapped in (no launch); then its stage breakdown.  Returns the
-    launches of the call."""
+    0-7) through engine.decompress_texture_linear(backend="device"): its
+    key's first call, eager (one launch of the BC7 kernel), bytes equal
+    to the same call with the plain version swapped in (no launch); then
+    its stage breakdown.  Returns the launches of
+    the call."""
     tex = Texture.new(F.BY_NAME["BPTC"].fmt, MP.tool_blocks(_N_BIG), _TEX,
                       _TEX)
     bptc.KERNEL_LAUNCHES = 0
+    graphs._PROGRAMS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = engine.decompress_texture_linear(tex, None, backend="device",
@@ -2109,16 +2471,19 @@ def _bptc_texture(smi: str) -> int:
     kernel_decode = bptc.decode_bptc
     bptc.decode_bptc = bptc.decode_bptc_plain
     try:
-        plain = engine.decompress_texture_linear(tex, None, backend="device",
-                                                 device="cuda")
+        with _eager_programs():
+            plain = engine.decompress_texture_linear(tex, None,
+                                                     backend="device",
+                                                     device="cuda")
     finally:
         bptc.decode_bptc = kernel_decode
     if bptc.KERNEL_LAUNCHES != launches or not np.array_equal(out, plain):
         raise AssertionError("BPTC texture call: kernel and plain bytes "
                              "differ, or the plain run launched")
     print(f"main path (texture engine, BPTC): decompress_texture_linear("
-          f"backend='device') on a {_TEX}x{_TEX} BPTC texture, one launch "
-          f"of bc7_kernel, byte-equal to the plain version; "
+          f"backend='device') on a {_TEX}x{_TEX} BPTC texture, "
+          f"{launches} launch of bc7_kernel (the key's first call, "
+          f"eager), byte-equal to the plain version; "
           f"{wall * 1e3:.3f} ms host bytes in to host bytes out (first "
           f"call) on {smi}")
     _breakdown("bptc", tex, None, bptc.decode_bptc, smi)
@@ -2716,46 +3081,52 @@ def _bench_control_path(smi: str) -> int:
 
 
 def _bench_train_path(smi: str) -> int:
-    """tools.bench_train_step at batch 64 of 64x64 BC7 observations; the
-    first compressed step's loss is held (inside the bench) to
-    dynamics.train_step called directly, rtol 1e-5.  Returns the BC7
-    launches."""
+    """tools.bench_train_step at batch 64 of 64x64 BC7 observations, a
+    "graph" and an "eager" row; each row's first compressed loss is held
+    (inside the bench) to dynamics.train_step called directly, rtol 1e-5.
+    Returns the BC7 launches."""
     bptc.KERNEL_LAUNCHES = 0
     with contextlib.redirect_stdout(io.StringIO()):
-        (row,) = BTS.main([])
+        rows = BTS.main([])
     launches = bptc.KERNEL_LAUNCHES
-    _bench_rows("bench train step", [row])
-    if row["bc7_launches_per_step"] != 2.0:
-        raise AssertionError(f"bench train step: {row}")
-    print(f"bench train step: compressed {row['ms_per_step_compressed']:.3f}"
-          f" ms, raw obs {row['ms_per_step_raw_obs']:.3f}, decode only "
-          f"{row['decode_only_ms']:.3f} (decode share "
-          f"{row['decode_share_pct']:.1f}%); host enqueue "
-          f"{row['host_enqueue_ms_compressed']:.3f} / "
-          f"{row['host_enqueue_ms_raw_obs']:.3f} / "
-          f"{row['host_enqueue_ms_decode_only']:.3f} ms; first loss "
-          f"{row['first_loss']:.9g} against train_step's "
-          f"{row['first_loss_train_step']:.9g}; BC7 launches {launches} on "
-          f"{smi}")
+    _bench_rows("bench train step", rows)
+    if [r["program"] for r in rows] != ["graph", "eager"] or \
+            any(r["bc7_launches_per_step"] != 2.0 for r in rows):
+        raise AssertionError(f"bench train step: {rows}")
+    print("bench train step: " + "; ".join(
+        f"{r['program']}: compressed {r['ms_per_step_compressed']:.3f} ms, "
+        f"raw obs {r['ms_per_step_raw_obs']:.3f}, decode only "
+        f"{r['decode_only_ms']:.3f} (decode share "
+        f"{r['decode_share_pct']:.1f}%); host enqueue "
+        f"{r['host_enqueue_ms_compressed']:.3f} / "
+        f"{r['host_enqueue_ms_raw_obs']:.3f} / "
+        f"{r['host_enqueue_ms_decode_only']:.3f} ms; first loss "
+        f"{r['first_loss']:.9g} against train_step's "
+        f"{r['first_loss_train_step']:.9g}" for r in rows)
+        + f"; BC7 launches {launches} on {smi}")
     return launches
 
 
 def _bench_pipelines_path(smi: str) -> dict:
-    """tools.bench_pipelines etc bc6h: config 2's image byte-equal (inside
-    the bench) to the native decode, config 4's images and latents equal
-    to the plain BC6H version's.  Returns the launch counts."""
+    """tools.bench_pipelines etc bc6h: config 2's image, in a "graph" and
+    an "eager" row, byte-equal (inside the bench) to the native decode,
+    config 4's images and latents equal to the plain BC6H version's.
+    Returns the launch counts."""
     _reset_all_counts()
     with contextlib.redirect_stdout(io.StringIO()):
-        etc_row, bc6h_row = BPL.main([])
+        rows = BPL.main([])
     launches = _all_counts()
-    _bench_rows("bench pipelines", [etc_row, bc6h_row])
-    if etc_row["etc2_eac_launches_per_step"] != 1.0 or \
-            bc6h_row["bc6h_launches_per_step"] != 1.0:
+    _bench_rows("bench pipelines", rows)
+    etc_rows, bc6h_row = rows[:2], rows[2]
+    if [r["program"] for r in etc_rows] != ["graph", "eager"] or \
+            any(r["etc2_eac_launches_per_step"] != 1.0 for r in etc_rows) \
+            or bc6h_row["bc6h_launches_per_step"] != 1.0:
         raise AssertionError("bench pipelines: a step did not launch its "
                              "kernel once")
-    print(f"bench pipelines: ETC2_EAC 1024^2 -> RGBA8 "
-          f"{etc_row['ms_per_1024sq_texture']:.4f} ms "
-          f"({etc_row['value']:.4g} blocks/s), byte-equal to native; BC6H "
+    print("bench pipelines: ETC2_EAC 1024^2 -> RGBA8 " + ", ".join(
+        f"{r['program']} {r['ms_per_1024sq_texture']:.4f} ms "
+        f"({r['value']:.4g} blocks/s, host {r['host_ms_per_step']:.4f})"
+        for r in etc_rows) + f", byte-equal to native; BC6H "
           f"-> latent batch 64 {bc6h_row['ms_per_batch64']:.3f} ms, decode "
           f"+ unpack {bc6h_row['decode_unpack_standalone_ms']:.4f}, kernel "
           f"{bc6h_row['decode_kernel_only_ms']:.4f}; latents equal to the "
@@ -2797,14 +3168,21 @@ def main() -> None:
         "graphed control step", _graphed_path, smi)
     bc7_paths["train"], bc7_paths["trained ilqr steps"] = _phase(
         "train", _train_path, rng, smi)
+    bc7_paths["graphed train step"] = _phase(
+        "graphed train step", _graphed_train_path, smi)
     bc7_paths["cli train"] = _phase("cli train", _cli_train_path)
     md_bc7, md_decode = _multi_device_phase(rng, smi)
     bc7_paths.update(md_bc7)
     texture_kernels, tex_blocks = _texture_phase(rng, smi, sass)
+    graphed = _phase("graphed texture pipelines", _graphed_texture_path,
+                     tex_blocks, smi)
+    bc7_paths["graphed texture pipelines"] = graphed.pop("bptc")
     for k in texture_kernels:
         k["launches_by_path"] = {
             "texture path": k["launches"],
-            "sharded decode (1 rank)": sum(md_decode[v] for v in k["variants"])}
+            "sharded decode (1 rank)": sum(md_decode[v] for v in k["variants"]),
+            "graphed texture pipelines": sum(graphed[v]
+                                             for v in k["variants"])}
     tool_kernels = _tools_phase(smi, sass)
     _phase("bptc texture", _bptc_texture, smi)
     # Last: its rounds of back-to-back launches are not to move the device

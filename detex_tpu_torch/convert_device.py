@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from detex_tpu_torch import formats as F
+from detex_tpu_torch import graphs
 from detex_tpu_torch import resolve_device
 from detex_tpu_torch import hdr as hdr_mod
 from detex_tpu_torch.convert import TABLE, ConversionError, match_conversion
@@ -113,9 +114,10 @@ def _bits(f: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    """A float32 0-d tensor on like's device (exact for f32 values)."""
-    return torch.tensor(np.float32(x), dtype=torch.float32,
-                        device=like.device)
+    """x rounded to float32 on the host, as a float32 0-d tensor on like's
+    device.  The tensor is a fill on the device, not a copy from the host:
+    a copy waits, and a captured conversion cannot hold one."""
+    return like.new_full((), float(np.float32(x)), dtype=torch.float32)
 
 
 # --- bit-exact float primitives on bit patterns ---------------------------
@@ -262,6 +264,25 @@ def _nan_passthrough(fbits, out):
     return torch.where(nan_in, fbits | 0x00400000, out)
 
 
+def gamma1_constants(rmin: float, rmax: float) -> tuple:
+    """The gamma 1 range map's two f32 prefactors (rmin, the downward
+    reciprocal of the downward rmax - rmin), by the host oracle."""
+    denom = np.float32(hdr_mod._down_sub_f32(np.float32(rmax),
+                                             np.float32(rmin)))
+    return np.float32(rmin), np.float32(hdr_mod._down_recip_f32(denom))
+
+
+def gamma_f32_constants(p) -> tuple:
+    """The gamma != 1 f32 map's prefactors (cmin, 1 / (cmax - cmin)), cmin
+    and cmax the signed powf of the range."""
+    inv_g = float(np.float32(1.0) / np.float32(p.gamma))
+    cmin = np.float32(np.asarray(hdr_mod._signed_powf(
+        np.float32(p.range_min), inv_g)).item())
+    cmax = np.float32(np.asarray(hdr_mod._signed_powf(
+        np.float32(p.range_max), inv_g)).item())
+    return cmin, np.float32(1.0) / np.float32(cmax - cmin)
+
+
 def _hdr_map_gamma1_bits(fbits: torch.Tensor, rmin: float,
                          rmax: float) -> torch.Tensor:
     """Gamma 1 range map under FE_DOWNWARD on int64 f32 bits
@@ -269,23 +290,16 @@ def _hdr_map_gamma1_bits(fbits: torch.Tensor, rmin: float,
     prefactors come from the host oracle."""
     if rmin == 0.0 and rmax == 1.0:
         return clamp01_f32_bits(fbits)
-    denom = np.float32(hdr_mod._down_sub_f32(np.float32(rmax),
-                                             np.float32(rmin)))
-    factor = hdr_mod._down_recip_f32(denom)
+    lo, factor = gamma1_constants(rmin, rmax)
     f = _f32(fbits)
-    u = down_mul(down_sub(f, _scalar(rmin, f)), _scalar(factor, f))
+    u = down_mul(down_sub(f, _scalar(lo, f)), _scalar(factor, f))
     return _nan_passthrough(fbits, clamp01_f32_bits(_bits(u)))
 
 
 def _hdr_map_gamma_f32_bits(fbits: torch.Tensor, p) -> torch.Tensor:
     """Gamma != 1 f32 map (hdr.c:188-206): clamp01((f - cmin) * factor)
-    with cmin, cmax the signed powf of the range, at FE_TONEAREST."""
-    inv_g = float(np.float32(1.0) / np.float32(p.gamma))
-    cmin = np.float32(np.asarray(hdr_mod._signed_powf(
-        np.float32(p.range_min), inv_g)).item())
-    cmax = np.float32(np.asarray(hdr_mod._signed_powf(
-        np.float32(p.range_max), inv_g)).item())
-    factor = np.float32(1.0) / np.float32(cmax - cmin)
+    at FE_TONEAREST."""
+    cmin, factor = gamma_f32_constants(p)
     f = _f32(fbits)
     u = (f - _scalar(cmin, f)) * _scalar(factor, f)
     return _nan_passthrough(fbits, clamp01_f32_bits(_bits(u)))
@@ -306,7 +320,10 @@ def _gamma_u16_lut_host(gamma: float, rmin: float, rmax: float) -> np.ndarray:
 def _gamma_u16_lut(gamma: float, rmin: float, rmax: float,
                    device: torch.device) -> torch.Tensor:
     """The table above on `device`, built and uploaded once per HDR
-    parameters and device."""
+    parameters and device.  The upload copies from pageable memory, which
+    a capture cannot hold: a captured conversion fetches the table first
+    (tables) and keeps it, so that the cache's eviction frees no table a
+    graph reads."""
     return torch.from_numpy(_gamma_u16_lut_host(gamma, rmin, rmax).copy()) \
         .to(device)
 
@@ -336,7 +353,8 @@ def _noop(a):
 
 
 def _swap_rb(a):
-    return a[:, [2, 1, 0, 3]]
+    # Slices, not a list index, which would copy its index from the host.
+    return torch.cat([a[:, 2:3], a[:, 1:2], a[:, 0:1], a[:, 3:4]], 1)
 
 
 def _lane(a, value):
@@ -518,10 +536,64 @@ def convert_pixels_device(arr: torch.Tensor, src_fmt: int,
     return arr.contiguous()
 
 
+def hdr_params_key() -> tuple:
+    """The HDR parameters a conversion reads when it runs.  A captured
+    conversion bakes them in, so its cache key holds them, as JAX's
+    _jitted_convert keys on them (detex_tpu/convert_device.py:602-611)."""
+    p = hdr_mod.get_hdr_parameters()
+    return (p.gamma, p.range_min, p.range_max)
+
+
+def tables(src_fmt: int, dst_fmt: int, device: torch.device) -> tuple:
+    """The device tables the conversion src_fmt -> dst_fmt reads under the
+    current HDR parameters, uploaded here where they are not yet: the
+    gamma != 1 half table of the HDR f16 -> u16 edges, or nothing.  A
+    captured conversion calls this before its capture and keeps what it
+    returns."""
+    steps = [DEVICE_TABLE[i] for i in match_conversion(src_fmt, dst_fmt)
+             or ()]
+    p = hdr_mod.get_hdr_parameters()
+    if _hdr_f16_to_u16 in steps and p.gamma != 1.0:
+        return (_gamma_u16_lut(p.gamma, p.range_min, p.range_max, device),)
+    return ()
+
+
+def _owned(out: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
+    """out, copied where it is arr itself (a path of no steps or of no-op
+    edges): a captured conversion's output is then its own, not the
+    input buffer."""
+    return out.clone() if out.data_ptr() == arr.data_ptr() else out
+
+
 def convert_pixels_torch(src: np.ndarray, n_pixels: int, src_fmt: int,
                          dst_fmt: int, device="cuda") -> np.ndarray:
     """convert.convert_pixels with the conversion run on `device` (the
     card unless device="cpu"): flat u8 host buffer in, flat u8 host buffer
-    out."""
+    out.  On a card the conversion goes through convert_pixels_graphed,
+    the counterpart of JAX's _jitted_convert; on the CPU it runs eagerly.
+    A pair with no path raises ConversionError before anything runs."""
     arr = from_bytes(src, n_pixels, src_fmt, device)
-    return to_bytes(convert_pixels_device(arr, src_fmt, dst_fmt))
+    if match_conversion(src_fmt, dst_fmt) is None:
+        raise ConversionError(
+            f"Unable to find conversion path "
+            f"{F.format_name(src_fmt)} -> {F.format_name(dst_fmt)}")
+    if arr.device.type != "cuda":
+        return to_bytes(convert_pixels_device(arr, src_fmt, dst_fmt))
+    return convert_pixels_graphed(arr, src_fmt, dst_fmt, to_bytes)
+
+
+def convert_pixels_graphed(arr: torch.Tensor, src_fmt: int, dst_fmt: int,
+                           read=None):
+    """convert_pixels_device on a CUDA tensor through the program of its
+    key (formats, pixel count, HDR parameters, device; graphs.Program):
+    the key's first call runs eagerly, its second captures a CUDA graph,
+    and from there each call copies `arr` into the graph's buffer and
+    replays.  The result is then the graph's output, which the key's next
+    call overwrites, unless `read` (applied under graphs.run's lock)
+    copies it out."""
+    return graphs.run(
+        ("convert", src_fmt, dst_fmt, arr.shape[0], hdr_params_key(),
+         arr.device),
+        lambda: graphs.Program(
+            lambda a: _owned(convert_pixels_device(a, src_fmt, dst_fmt), a),
+            keep=tables(src_fmt, dst_fmt, arr.device)), arr, read)

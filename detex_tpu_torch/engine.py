@@ -15,7 +15,7 @@ Layers:
       bytes on the host, byte for byte the reference's pixel buffers
   decompress_texture_linear_device / _tiled_device : the whole texture,
       decoded, converted (convert_device), zeroed and assembled on the
-      device, returned as a device tensor
+      device by _device_pipeline, returned as a device tensor
   decompress_texture_linear / _tiled : the whole texture in a pixel format
       as host bytes, with partial edge blocks cropped and invalid blocks
       zero in the target format (texture.c:90-93, 125-127)
@@ -30,6 +30,18 @@ The device is explicit: a CUDA device runs the CUDA kernels, the CPU runs
 their plain PyTorch versions, and nothing falls back from one to the other.
 A format pair with no conversion path raises ConversionError on every
 backend.
+
+One program per call, as in the JAX engine: on a card every "device"
+texture call (and the "device" conversion of an uncompressed texture,
+convert_device.convert_pixels_torch) whose key was called before is one
+replay of a CUDA graph captured per key (_device_pipeline,
+graphs.Program), the counterpart of JAX's jitted pipelines
+(detex_tpu/engine.py:278-394); a key's first call runs the same kernels
+eagerly, so a caller that never repeats a key (dtx-convert on a mip chain)
+pays no capture and keeps no graph.  The calls take one lock
+(graphs.run), so threads may share the engine.  decode_blocks_device
+stays a direct launch: it is one kernel, so one launch is already one
+program (JAX's _jitted_decoder, detex_tpu/engine.py:97-100).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import torch
 from detex_tpu_torch import convert as C
 from detex_tpu_torch import resolve_device as _device
 from detex_tpu_torch import formats as F
+from detex_tpu_torch import graphs
 from detex_tpu_torch.texture import Texture
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
@@ -178,24 +191,58 @@ def _check_device_path(tex_fmt: int, pixel_format: int) -> None:
             f"{F.format_name(pixel_format)}")
 
 
-def _device_pipeline(tex_fmt: int, pixel_format: int, wb: int, hb: int,
-                     width: int, height: int):
-    """The words-on-the-device pipeline (counterpart of
-    detex_tpu/engine.py:278): a function of ((wb * hb, k) int32 words on
-    a device, mode_mask, flags) that decodes, converts, zeroes invalid
-    blocks and assembles there, returning the (height, width, lanes)
-    image in convert_device's lane representation of pixel_format.
-    Nothing goes to or from the host, so a caller with words already on
-    the card (a bench, a renderer) runs the texture path alone.  A format
-    pair with no conversion path raises ConversionError here, before
-    anything runs."""
-    _check_device_path(tex_fmt, pixel_format)
+def _pipeline_body(tex_fmt: int, pixel_format: int, wb: int, hb: int,
+                   width: int, height: int, tiled: bool, mode_mask,
+                   flags):
+    """The eager pipeline: a function of (wb * hb, k) int32 words on a
+    device that decodes, converts and zeroes invalid blocks there, then
+    assembles the (height, width, lanes) image (tiled=False) or keeps the
+    (wb * hb, 16, lanes) tiles (tiled=True), in convert_device's lane
+    representation of pixel_format."""
+    def body(words: torch.Tensor) -> torch.Tensor:
+        tiles = _device_tiles(tex_fmt, pixel_format, words, mode_mask, flags)
+        return tiles if tiled else _assemble(tiles, wb, hb, width, height)
+    return body
 
-    def pipeline(words: torch.Tensor, mode_mask=_FULL, flags=0
-                 ) -> torch.Tensor:
-        return _assemble(_device_tiles(tex_fmt, pixel_format, words,
-                                       mode_mask, flags),
-                         wb, hb, width, height)
+
+def _device_pipeline(tex_fmt: int, pixel_format: int, wb: int, hb: int,
+                     width: int, height: int, tiled: bool = False):
+    """The words-on-the-device pipeline (counterpart of
+    detex_tpu/engine.py:278-394): a function of ((wb * hb, k) int32 words
+    on a device, mode_mask, flags) that decodes, converts, zeroes invalid
+    blocks and assembles there (_pipeline_body), returning the (height,
+    width, lanes) image, or with tiled=True the (wb * hb, 16, lanes)
+    tiles.  Nothing goes to or from the host, so a caller with words
+    already on the card (a bench, a renderer) runs the texture path alone.
+
+    On a card each call of a key (format, pixel format, the texture's
+    shape, tiled, mode_mask, flags, the HDR parameters, the device) after
+    its first is one replay of a CUDA graph (graphs.Program), the
+    counterpart of JAX's jitted pipeline, captured at the key's second
+    call after GRAPH_WARMUP eager runs; the first call runs the body
+    eagerly.  The kernels take mode_mask and flags as launch arguments
+    and the conversion reads the HDR parameters while it is captured, so
+    a capture bakes them in and the key holds them.  The words are copied
+    into the graph's buffer, and the result is the graph's output: the
+    next call with the same key overwrites it, unless `read` (applied
+    under graphs.run's lock) copies it out.  On the CPU the pipeline runs
+    eagerly.  A format pair with no conversion path raises ConversionError
+    here, before anything runs."""
+    _check_device_path(tex_fmt, pixel_format)
+    src_fmt = F.texture_pixel_format(tex_fmt)
+
+    def pipeline(words: torch.Tensor, mode_mask=_FULL, flags=0, read=None):
+        body = _pipeline_body(tex_fmt, pixel_format, wb, hb, width, height,
+                              tiled, mode_mask, flags)
+        if words.device.type != "cuda":
+            out = body(words)
+            return out if read is None else read(out)
+        key = ("pipeline", tex_fmt, pixel_format, wb, hb, width, height,
+               tiled, int(mode_mask) & _FULL, int(flags) & _FULL,
+               CD.hdr_params_key(), words.device)
+        return graphs.run(key, lambda: graphs.Program(
+            body, keep=CD.tables(src_fmt, pixel_format, words.device)),
+            words, read)
     return pipeline
 
 
@@ -204,30 +251,41 @@ def _texture_words(tex: Texture, device) -> torch.Tensor:
                   _device(device))
 
 
+def _texture_pipeline(tex: Texture, pixel_format: int, tiled: bool):
+    return _device_pipeline(tex.format, pixel_format, tex.width_in_blocks,
+                            tex.height_in_blocks, tex.width, tex.height,
+                            tiled)
+
+
+def _copy_out(out: torch.Tensor) -> torch.Tensor:
+    """A result on the card copied into a tensor of the caller's (it may
+    be a graph's output); a CPU result is fresh already."""
+    return out.clone() if out.is_cuda else out
+
+
 def decompress_texture_tiled_device(tex: Texture, pixel_format: int = None,
                                     mode_mask=_FULL, flags=0,
                                     device="cuda") -> torch.Tensor:
     """Per-block tiles decoded, converted and zeroed on `device` and left
     there (texture.c:77-98): (n_blocks, 16, lanes) in convert_device's lane
-    representation of pixel_format.  Their bytes equal the host path's."""
+    representation of pixel_format.  Their bytes equal the host path's.
+    The tensor is the caller's: later calls do not change it."""
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
-    _check_device_path(tex.format, pixel_format)
-    return _device_tiles(tex.format, pixel_format,
-                         _texture_words(tex, device), mode_mask, flags)
+    return _texture_pipeline(tex, pixel_format, True)(
+        _texture_words(tex, device), mode_mask, flags, _copy_out)
 
 
 def decompress_texture_linear_device(tex: Texture, pixel_format: int = None,
                                      mode_mask=_FULL, flags=0,
                                      device="cuda") -> torch.Tensor:
     """The whole texture decoded, converted, zeroed and assembled
-    row-major on `device` by _device_pipeline: (height, width, lanes)."""
+    row-major on `device` by _device_pipeline: (height, width, lanes).
+    The tensor is the caller's: later calls do not change it."""
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
-    pipeline = _device_pipeline(tex.format, pixel_format,
-                                tex.width_in_blocks, tex.height_in_blocks,
-                                tex.width, tex.height)
-    return pipeline(_texture_words(tex, device), mode_mask, flags)
+    return _texture_pipeline(tex, pixel_format, False)(
+        _texture_words(tex, device), mode_mask, flags, _copy_out)
 
 
 def _tiles_host(tex: Texture, pixel_format: int, mode_mask, flags,
@@ -266,8 +324,9 @@ def decompress_texture_linear(tex: Texture, pixel_format: int = None,
         else:
             out = C.convert_pixels(tex.data, n_px, src_fmt, pixel_format)
     elif backend == "device":
-        out = CD.to_bytes(decompress_texture_linear_device(
-            tex, pixel_format, mode_mask, flags, device))
+        # The bytes are copied straight from the pipeline's output.
+        out = _texture_pipeline(tex, pixel_format, False)(
+            _texture_words(tex, device), mode_mask, flags, CD.to_bytes)
     else:
         tiles = _tiles_host(tex, pixel_format, mode_mask, flags, backend,
                             device)
@@ -293,8 +352,8 @@ def decompress_texture_tiled(tex: Texture, pixel_format: int = None,
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
     if backend == "device":
-        out = CD.to_bytes(decompress_texture_tiled_device(
-            tex, pixel_format, mode_mask, flags, device))
+        out = _texture_pipeline(tex, pixel_format, True)(
+            _texture_words(tex, device), mode_mask, flags, CD.to_bytes)
     else:
         out = _tiles_host(tex, pixel_format, mode_mask, flags, backend,
                           device).ravel()

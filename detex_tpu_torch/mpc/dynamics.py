@@ -313,12 +313,20 @@ def make_optimizer(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
     eps) + wd p).  torch: p *= 1 - lr wd, then p -= lr/(1-b1^t) mu /
     (sqrt(nu)/sqrt(1-b2^t) + eps).  Both decay the parameter before the
     step, correct both moments by the step count t, and add eps outside
-    the square root (optax's eps_root is 0); only the rounding differs."""
+    the square root (optax's eps_root is 0); only the rounding differs.
+
+    On a card the optimizer is capturable: it keeps its step count on the
+    device and computes the bias corrections there in float32, so that a
+    CUDA graph can hold the step (train_loop._TrainGraph).  The eager card
+    step uses it as well, so graphed and eager steps do the same
+    arithmetic.  On the CPU (where torch refuses capturable=True) the
+    corrections are host doubles."""
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-5)
+                             weight_decay=1e-5,
+                             capturable=leaves[0].device.type == "cuda")
 
 
 def train_step(params: Params, optimizer: torch.optim.Optimizer,

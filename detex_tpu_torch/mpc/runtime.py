@@ -23,14 +23,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from detex_tpu_torch import formats as F
+from detex_tpu_torch import graphs
 from detex_tpu_torch import resolve_device
+from detex_tpu_torch.graphs import GRAPH_WARMUP  # noqa: F401 (re-exported)
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import ilqr as ilqr_mod
 from detex_tpu_torch.mpc import mppi as mppi_mod
@@ -152,14 +153,6 @@ def control_step(params, nominal, generator, obs_words, goal_z,
     return action, shifted, diag
 
 
-# Eager steps run on the capture's side stream before a capture.  They
-# make everything the step creates lazily: the BC7 library
-# (_build.load_library), the cuBLAS, cuSOLVER and cuDNN handles and plans,
-# and the caching allocator's blocks.  The first step makes them; the
-# second runs on what the first left, as every replay will.
-GRAPH_WARMUP = 2
-
-
 def step_body(params, nominal: torch.Tensor, words: torch.Tensor,
               goal_z: torch.Tensor, eps: torch.Tensor,
               cfg: ControllerConfig) -> tuple:
@@ -209,10 +202,10 @@ class _StepGraph:
     diagnostics (step_body).  A run loads the words, draws the noise
     outside the graph from the caller's generator with mppi_step's own
     draw (mppi.draw_noise), and replays.  The graph is captured at the first
-    run, as jit compiles at the first call: GRAPH_WARMUP eager steps on a
-    side stream, with zero noise and the nominal restored after them, then
-    the capture on that stream.  A failed capture or replay raises; there
-    is no eager fallback."""
+    run, as jit compiles at the first call (graphs.Graph): GRAPH_WARMUP
+    eager steps on a side stream, with zero noise and the nominal restored
+    after them, then the capture on that stream.  A failed capture or
+    replay raises; there is no eager fallback."""
 
     def __init__(self, params, nominal: torch.Tensor, goal_z: torch.Tensor,
                  cfg: ControllerConfig):
@@ -227,9 +220,8 @@ class _StepGraph:
         self.eps = torch.zeros((mcfg.n_rollouts, mcfg.horizon,
                                 mcfg.action_dim), dtype=torch.float32,
                                device=nominal.device)
-        self.graph = None
-        self.capture_s = None
-        self.launches_per_replay = None
+        self._saved = None
+        self._graph = graphs.Graph(nominal.device)
 
     def load(self, words: torch.Tensor, non_blocking: bool = False) -> None:
         """Copy an observation's (N_blocks, 4) int32 words into the words
@@ -243,27 +235,33 @@ class _StepGraph:
     def capture(self) -> None:
         """Warm up and capture, once; the generator is not touched and the
         nominal is left as it was found."""
-        if self.graph is not None:
+        if self._graph.graph is not None:
             return
-        t0 = time.perf_counter()
-        saved = self.nominal.clone()
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(self.nominal.device)
-        stream.wait_stream(torch.cuda.current_stream(self.nominal.device))
-        with _capturable_linalg(), torch.cuda.stream(stream):
-            for _ in range(GRAPH_WARMUP):
-                self._body()
-            self.nominal.copy_(saved)
-            launches = bptc.KERNEL_LAUNCHES
-            with torch.cuda.graph(graph, stream=stream):
-                self._packed, self._names = self._body()
-            # The BC7 wrapper counted its launch where the capture recorded
-            # it, but no kernel ran then: every replay adds the count.
-            self.launches_per_replay = bptc.KERNEL_LAUNCHES - launches
-            bptc.KERNEL_LAUNCHES = launches
-        torch.cuda.current_stream(self.nominal.device).wait_stream(stream)
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        self._saved = self.nominal.clone()
+        with _capturable_linalg():
+            self._graph.capture(self._body, self._restore)
+        self._saved = None
+        self._packed, self._names = self._graph.out
+
+    def _restore(self) -> None:
+        self.nominal.copy_(self._saved)
+
+    @property
+    def graph(self):
+        """The captured torch.cuda.CUDAGraph, None before the capture."""
+        return self._graph.graph
+
+    @property
+    def capture_s(self):
+        """The capture's wall time in s, warm-ups included."""
+        return self._graph.capture_s
+
+    @property
+    def launches_per_replay(self):
+        """BC7 launches a replay (None before the capture)."""
+        if self._graph.graph is None:
+            return None
+        return self._graph.launches.get("bptc", 0)
 
     def _body(self):
         return step_body(self.params, self.nominal, self.words, self.goal_z,
@@ -274,8 +272,7 @@ class _StepGraph:
         copy of the output that later replays do not overwrite."""
         self.capture()
         mppi_mod.draw_noise(self.eps, generator, self.cfg.mppi.noise_sigma)
-        self.graph.replay()
-        bptc.KERNEL_LAUNCHES += self.launches_per_replay
+        self._graph.replay()
         return unpack_step(self._packed.clone(), self._names,
                            self.cfg.mppi.action_dim)
 

@@ -5,6 +5,8 @@ the same numpy code, so one seed gives the same batches, byte for byte,
 in both packages.  With compressed observations the training step decodes
 the BC7 batches on the device with the control step's decode
 (runtime.decode_obs_batch: one BC7 kernel launch per batch of words).
+On one card with no mesh the step is one captured CUDA graph
+(_TrainGraph), the counterpart of the JAX loop's jitted step.
 Checkpoints are written every `checkpoint_every` steps and a run resumes
 deterministically from `checkpoint_dir/latest`: the data stream is
 re-seeded from the restored step counter.
@@ -28,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from detex_tpu_torch import graphs
 from detex_tpu_torch import resolve_device
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc.runtime import decode_obs_batch
@@ -235,6 +238,153 @@ def make_train_step(dcfg: D.DynamicsConfig, optimizer,
     return visual_step
 
 
+def train_body(params, optimizer, batch: Dict[str, torch.Tensor],
+               dcfg: D.DynamicsConfig, compressed_obs: bool
+               ) -> torch.Tensor:
+    """The body of the captured train step on its static buffers:
+    make_train_step's step (visual_step's decode_batch then
+    dynamics.train_step with compressed_obs; train_step alone without),
+    returning the loss, a 0-d tensor.  The parameters and the optimizer's
+    state are updated in place: the port's form of JAX's
+    donate_argnums=(0, 1) (detex_tpu/mpc/train_loop.py:218-233)."""
+    if compressed_obs:
+        batch = decode_batch(batch, dcfg.image_size)
+    return D.train_step(params, optimizer, batch, dcfg)[1]
+
+
+def _step_state(params, optimizer) -> list:
+    """Every tensor a train step updates in place: the parameters, then
+    each one's optimizer state (exp_avg, exp_avg_sq, step) where it has
+    one (a fresh optimizer has none before its first step)."""
+    leaves = D.param_leaves(params)
+    return leaves + [t for p in leaves
+                     for _, t in sorted(optimizer.state.get(p, {}).items())]
+
+
+@torch.no_grad()
+def save_step_state(params, optimizer) -> list:
+    """Copies of _step_state's tensors."""
+    return [t.clone() for t in _step_state(params, optimizer)]
+
+
+@torch.no_grad()
+def restore_step_state(params, optimizer, saved: list) -> None:
+    """Put the state that save_step_state copied back in place, into the
+    same tensors.  Where the optimizer was fresh then and has stepped
+    since, its moments and step count go back to zero, as torch makes them
+    at a first step."""
+    state = _step_state(params, optimizer)
+    n = len(D.param_leaves(params))
+    if len(saved) == n:
+        saved = saved + [torch.zeros_like(t) for t in state[n:]]
+    for t, s in zip(state, saved, strict=True):
+        t.copy_(s)
+
+
+class _TrainGraph:
+    """The train step as one captured CUDA graph on one card: the
+    counterpart of jax.jit(visual_step, donate_argnums=(0, 1)) at
+    detex_tpu/mpc/train_loop.py:218-233.
+
+    Static device buffers hold the batch: obs_words and next_obs_words
+    ((B, N_blocks, 4) int32) with compressed observations, else obs and
+    next_obs ((B, H, W, C) uint8), and action ((B, A) float32).  load()
+    copies a host batch in through one of two reused pinned buffers, on
+    the current stream and without waiting for the replay before it; a
+    call replays train_body on them, updating the parameters and the
+    optimizer's moments and step count in place, and returns a copy of
+    the loss.  The graph is captured at the first call (graphs.Graph):
+    GRAPH_WARMUP eager steps on a side stream, which train, so the
+    parameters and the optimizer's state are saved before them and put
+    back in place after them; the first replay is then step 1 of the
+    trajectory the eager loop takes.  The optimizer must be capturable
+    (dynamics.make_optimizer on a card).  A failed capture or replay
+    raises; there is no eager fallback."""
+
+    def __init__(self, params, optimizer, dcfg: D.DynamicsConfig,
+                 batch_size: int, compressed_obs: bool):
+        leaves = D.param_leaves(params)
+        device = leaves[0].device
+        if device.type != "cuda":
+            raise ValueError(f"a captured train step needs a CUDA device, "
+                             f"not {device}")
+        self.params, self.optimizer, self.dcfg = params, optimizer, dcfg
+        self.compressed_obs = compressed_obs
+        s, b = dcfg.image_size, batch_size
+        obs = (((b, (s // 4) ** 2, 4), torch.int32) if compressed_obs
+               else ((b, s, s, dcfg.channels), torch.uint8))
+        names = (("obs_words", "next_obs_words") if compressed_obs
+                 else ("obs", "next_obs"))
+        shapes = {names[0]: obs, names[1]: obs,
+                  "action": ((b, dcfg.action_dim), torch.float32)}
+        self.batch = {k: torch.zeros(shape, dtype=dtype, device=device)
+                      for k, (shape, dtype) in shapes.items()}
+        self._host = [{k: torch.empty(shape, dtype=dtype, pin_memory=True)
+                       for k, (shape, dtype) in shapes.items()}
+                      for _ in range(2)]
+        self._uploaded = [None, None]
+        self._slot = 0
+        self._saved = None
+        self._graph = graphs.Graph(device)
+
+    def load(self, batch: Dict[str, np.ndarray]) -> None:
+        """Copy a host batch (numpy arrays or CPU tensors) into the static
+        buffers: into a pinned buffer on the host, then up with
+        non_blocking=True on the current stream.  The pinned buffer was
+        last read by the upload two loads before, which the card has
+        finished unless it is that far behind; only then does this wait."""
+        slot, self._slot = self._slot, self._slot ^ 1
+        event = self._uploaded[slot]
+        if event is not None and not event.query():
+            event.synchronize()
+        host = self._host[slot]
+        for k, buf in self.batch.items():
+            src = torch.as_tensor(batch[k])
+            if tuple(src.shape) != tuple(buf.shape) or \
+                    src.dtype != buf.dtype:
+                raise ValueError(f"batch {k} of shape {tuple(src.shape)} "
+                                 f"{src.dtype}, expected "
+                                 f"{tuple(buf.shape)} {buf.dtype}")
+            host[k].copy_(src)
+            buf.copy_(host[k], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._uploaded[slot] = event
+
+    def capture(self) -> None:
+        """Save the state, warm up, put the state back, capture; once."""
+        if self._graph.graph is not None:
+            return
+        self._saved = save_step_state(self.params, self.optimizer)
+        self._graph.capture(self._body, self._restore)
+        self._saved = None
+
+    def _restore(self) -> None:
+        restore_step_state(self.params, self.optimizer, self._saved)
+
+    def _body(self) -> torch.Tensor:
+        return train_body(self.params, self.optimizer, self.batch, self.dcfg,
+                          self.compressed_obs)
+
+    @property
+    def capture_s(self):
+        """The capture's wall time in s, warm-ups included."""
+        return self._graph.capture_s
+
+    @property
+    def launches_per_replay(self):
+        """BC7 launches a replay (None before the capture)."""
+        if self._graph.graph is None:
+            return None
+        return self._graph.launches.get("bptc", 0)
+
+    def __call__(self) -> torch.Tensor:
+        """One train step on the loaded batch: the loss before the step,
+        a 0-d tensor that later steps do not overwrite."""
+        self.capture()
+        return self._graph.replay().clone()
+
+
 def _opt_state(state_dict: dict, leaf, names) -> dict:
     """An optimizer state dict with each moment passed through
     leaf(tensor, layer name, leaf name)."""
@@ -257,7 +407,13 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
     returns (params, optimizer, last_loss): with a mesh, this rank's
     shards and the global batch's loss.
 
-    Resumes from cfg.checkpoint_dir/latest if present."""
+    On a card with no mesh every step is one replay of a captured CUDA
+    graph (_TrainGraph), captured at the first step, after the restore;
+    on the CPU and with a mesh (gloo's collectives copy through the host,
+    which a capture cannot hold) each step runs eagerly (make_train_step).
+    Checkpoints read the live parameters and optimizer state, which the
+    graph updates in place.  Resumes from cfg.checkpoint_dir/latest if
+    present."""
     device = resolve_device(device)
     mesh = (None if cfg.mesh_shape is None
             else mesh_mod.make_mesh(cfg.mesh_shape, device=device))
@@ -293,18 +449,27 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
                 x, mesh, n, k), names)
         optimizer.load_state_dict(opt_state)
 
-    step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs, mesh)
+    graph = step_fn = None
+    if device.type == "cuda" and mesh is None:
+        graph = _TrainGraph(params, optimizer, dcfg, cfg.batch_size,
+                            cfg.compressed_obs)
+    else:
+        step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs, mesh)
     loss = torch.zeros(())
     for step in range(start_step, cfg.n_steps):
         rng = np.random.default_rng(
             np.random.SeedSequence([cfg.seed, step]))
-        batch = {k: torch.as_tensor(v)
-                 for k, v in env.sample_batch(rng, cfg.batch_size).items()}
-        if mesh is not None:
-            batch = {k: mesh_mod.shard_batch(v, mesh, "dp")
-                     for k, v in batch.items()}
-        params, loss = step_fn(params, {k: v.to(device)
-                                        for k, v in batch.items()})
+        batch = env.sample_batch(rng, cfg.batch_size)
+        if graph is not None:
+            graph.load(batch)
+            loss = graph()
+        else:
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            if mesh is not None:
+                batch = {k: mesh_mod.shard_batch(v, mesh, "dp")
+                         for k, v in batch.items()}
+            params, loss = step_fn(params, {k: v.to(device)
+                                            for k, v in batch.items()})
         if lead and (step % 10 == 0 or step == cfg.n_steps - 1):
             metrics.log(step, loss=float(loss))
         if (ckpt_path is not None and cfg.checkpoint_every

@@ -9,7 +9,11 @@ etc  (config 2): a 1024^2 ETC2_EAC texture (65,536 blocks) -> RGBA8
      (csrc/etc_eac.cu), the zeroing of invalid blocks and the assembly, on
      the card, with no host copy.  Each step decodes words ^ i and its
      image replaces the last one (the JAX tool carries the image so that
-     XLA cannot drop the assembly; eager torch runs every op anyway).
+     XLA cannot drop the assembly; torch runs every op anyway).  One row
+     per program: "graph" (on a card; each step one replay of the
+     pipeline's captured CUDA graph, the counterpart of the jitted
+     pipeline the JAX tool times, captured before the timing) and "eager"
+     (the same body launched op by op; the CPU has only this one).
 bc6h (config 4): BC6H HDR blocks (csrc/bc6h.cu) -> FLOAT_RGB16 -> float32
      (convert_device.f16_bits_to_f32_bits) -> dynamics.encode at
      DynamicsConfig(image_size=64, channels=3), batch 64; beside it the
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -53,22 +58,40 @@ def _timed(step, device, args) -> dict:
             "host_ms": tools.spread(host_ms)["median"]}
 
 
-def bench_etc_pipeline(device: torch.device, args) -> dict:
-    """Config 2: ETC2_EAC texture -> RGBA8 on the card."""
+def bench_etc_pipeline(device: torch.device, args,
+                       program: str = "eager") -> dict:
+    """Config 2: ETC2_EAC texture -> RGBA8 on the card, in `program`:
+    "graph", engine._device_pipeline (one replay of its captured CUDA
+    graph a step, captured before the timing), or "eager", its body
+    (engine._pipeline_body) launched op by op."""
     side = args.side
     wb = hb = side // 4
     n_blocks = wb * hb
     words_np = np.random.default_rng(1).integers(
         -2**31, 2**31, (n_blocks, 4), np.int64).astype(np.int32)
     words = torch.from_numpy(words_np).to(device)
-    pipeline = engine._device_pipeline(F.ETC2_EAC, F.RGBA8, wb, hb, side,
-                                       side)
+    capture_s = None
+    if program == "graph":
+        pipeline = engine._device_pipeline(F.ETC2_EAC, F.RGBA8, wb, hb, side,
+                                           side)
+        pipeline(words, _FULL, 0)           # the key's first call: eager
+        t0 = time.perf_counter()
+        pipeline(words, _FULL, 0)           # its second: the capture
+        torch.cuda.synchronize(device)
+        capture_s = time.perf_counter() - t0
+    else:
+        body = engine._pipeline_body(F.ETC2_EAC, F.RGBA8, wb, hb, side,
+                                     side, False, _FULL, 0)
+
+        def pipeline(w, mode_mask, flags):
+            return body(w)
     carry = {}
 
     def step(i):
         carry["img"] = pipeline(words ^ i, _FULL, 0)
         if i == 0:
-            carry["first"] = carry["img"]
+            # A graph's output is overwritten by the next step's.
+            carry["first"] = carry["img"].clone()
 
     launches = etc.KERNEL_LAUNCHES["etc2_eac"]
     t = _timed(step, device, args)
@@ -76,15 +99,17 @@ def bench_etc_pipeline(device: torch.device, args) -> dict:
     tex = Texture.new(F.ETC2_EAC, words_np.view(np.uint8), side, side)
     want = engine.decompress_texture_linear(tex, F.RGBA8, backend="native")
     if not np.array_equal(CD.to_bytes(carry["first"]), want):
-        raise AssertionError("the ETC2_EAC pipeline's image differs from "
-                             "the native decode's")
+        raise AssertionError(f"{program}: the ETC2_EAC pipeline's image "
+                             f"differs from the native decode's")
     return {"metric": "etc2_eac_texture_to_rgba8_blocks_per_s",
+            "program": program,
             "value": n_blocks / t["ms"] * 1e3, "unit": "blocks/s",
             "ms_per_1024sq_texture": t["ms"], "side": side,
             "p10_ms": t["p10_ms"], "p90_ms": t["p90_ms"],
             "host_ms_per_step": t["host_ms"],
             "etc2_eac_launches_per_step":
                 launches / (args.warmup + args.steps),
+            "capture_s": capture_s,
             "bytes_equal_native": True}
 
 
@@ -154,6 +179,7 @@ def bench_bc6h_encoder(device: torch.device, args) -> dict:
         raise AssertionError(f"BC6H latents differ by {diff:.3g} "
                              f"(largest {scale:.3g})")
     return {"metric": "bc6h_hdr_to_latent_images_per_s",
+            "program": "eager",
             "value": batch / t["ms"] * 1e3, "unit": "images/s",
             "ms_per_batch64": t["ms"], "batch": batch,
             "image_size": size, "p10_ms": t["p10_ms"],
@@ -181,14 +207,19 @@ def main(argv=None) -> list:
         ap.error(f"unknown pipelines {set(args.which) - {'etc', 'bc6h'}}")
     device = tools.open_device(args.device)
     card = tools.card(device)
+    programs = ("graph", "eager") if device.type == "cuda" else ("eager",)
+    runs = []
+    if "etc" in args.which:
+        runs += [lambda p=p: bench_etc_pipeline(device, args, p)
+                 for p in programs]
+    if "bc6h" in args.which:
+        runs.append(lambda: bench_bc6h_encoder(device, args))
     rows = []
-    for name, fn in (("etc", bench_etc_pipeline),
-                     ("bc6h", bench_bc6h_encoder)):
-        if name in args.which:
-            row = dict(fn(device, args), warmup=args.warmup,
-                       steps=args.steps, platform=device.type, device=card)
-            print(json.dumps(row), flush=True)
-            rows.append(row)
+    for run in runs:
+        row = dict(run(), warmup=args.warmup, steps=args.steps,
+                   platform=device.type, device=card)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 
