@@ -42,8 +42,22 @@ all at once) and drives the port's three paths:
     the unsharded Controller (atol 1e-6) and both timed by CUDA events,
     decode_blocks_sharded for all 19 variants at 1,048,576 blocks
     (bit-exact, no collective byte), the horizon-sharded LQT (H = 32, 128
-    states) and a (1, 1) train step; then 2 and 4 ranks spawned on the one
-    card over gloo (NCCL takes one rank per card): the sharded control
+    states) and a (1, 1) train step; "graphed multi-device 1 rank", in a
+    fresh NCCL world of one: 5 full-width steps each of graphed sharded
+    Controllers (MPPI, iLQR sequential and parallel LQT on damped
+    dynamics), each replay holding the step's NCCL collectives, against
+    the eager sharded step on the same noise, bit-equal (the LQT's eager
+    step on the capture's LU library; its distance from the step on
+    torch's default LU routing printed), and the unsharded graphed
+    Controller (atol 1e-6), BC7
+    launches and collective bytes a replay against the eager step's,
+    capture s and peak memory, a graphed sharded PipelinedController one
+    step behind with a step under sync debug "error", the graphed and
+    eager sharded step's period and host enqueue, and train() on the
+    (1, 1) mesh through its graph against the eager sharded train step
+    (bit-equal, deterministic cuDNN) with both timed; then 2 and 4 ranks
+    spawned on the one card over gloo (NCCL takes one rank per card; a
+    Controller there stays eager): the sharded control
     step flat over "dp" and over (2, 2) ("dcn", "ici"), the BC7 and BC6H
     sharded decode, the sharded LQT, a (2, 2) dp x tp train step and
     entry.dryrun_multichip, each held to the unsharded result on the card;
@@ -124,6 +138,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -140,7 +155,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from detex_tpu_torch import _build, engine, entry, graphs, hdr
+from detex_tpu_torch import _build, engine, entry, graphs, hdr, tools
 from detex_tpu_torch import convert as C
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch import formats as F
@@ -934,10 +949,10 @@ _GRAPH_CASES = (("MPPI", 0, False, 1e-6), ("iLQR sequential", 2, False, 1e-5),
                 ("iLQR parallel LQT", 2, True, 1e-5))
 
 
-def _eager_serve(params, goal, cfg, requests) -> tuple:
-    """control_step served eagerly over `requests`, the nominal carried and
-    the noise drawn from a generator seeded as a Controller seeds its own:
-    ([action], [diagnostics as floats], the generator)."""
+def _eager_serve(params, goal, cfg, requests, mesh=None) -> tuple:
+    """control_step (on `mesh`) served eagerly over `requests`, the nominal
+    carried and the noise drawn from a generator seeded as a Controller
+    seeds its own: ([action], [diagnostics as floats], the generator)."""
     gen = torch.Generator(device="cuda").manual_seed(_SEED)
     nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim),
                           device="cuda")
@@ -946,7 +961,7 @@ def _eager_serve(params, goal, cfg, requests) -> tuple:
         for words in requests:
             action, nominal, diag = R.control_step(
                 params, nominal, gen, torch.from_numpy(words).cuda(), goal,
-                cfg)
+                cfg, mesh=mesh)
             actions.append(action.cpu().numpy())
             diags.append({k: float(v) for k, v in diag.items()})
     return actions, diags, gen
@@ -1217,17 +1232,22 @@ class _Batches:
         return next(self.batches)
 
 
-def _eager_train(cfg, batches) -> tuple:
+def _eager_train(cfg, batches, mesh=None) -> tuple:
     """train()'s loop run eagerly on the card (make_train_step) over
-    `batches`: (losses, params, optimizer)."""
+    `batches`, on `mesh` (the parameters its tp shards, each batch its dp
+    rows): (losses, params, optimizer)."""
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     params = D.init_params(cfg.dynamics, gen, "cuda")
+    if mesh is not None:
+        params = D.shard_params(params, mesh)
     opt = D.make_optimizer(params, cfg.lr)
-    step = TL.make_train_step(cfg.dynamics, opt, cfg.compressed_obs)
+    step = TL.make_train_step(cfg.dynamics, opt, cfg.compressed_obs, mesh)
     losses = []
     for b in batches:
-        params, loss = step(params, {k: torch.as_tensor(v).cuda()
-                                     for k, v in b.items()})
+        b = {k: torch.as_tensor(v) for k, v in b.items()}
+        if mesh is not None:
+            b = {k: PM.shard_batch(v, mesh, "dp") for k, v in b.items()}
+        params, loss = step(params, {k: v.cuda() for k, v in b.items()})
         losses.append(float(loss))
     return losses, params, opt
 
@@ -1450,6 +1470,10 @@ def _md_rank(rank: int, inputs: dict) -> dict:
     words = torch.as_tensor(inputs["words"], device="cuda")
     out, launches = {}, {}
     mesh = PM.make_mesh((n, 1), device="cuda")
+    if PM.capturable(mesh) or R.Controller(
+            params, torch.zeros(cfg.dynamics.latent_dim, device="cuda"), cfg,
+            device="cuda", mesh=mesh).graphed:
+        raise AssertionError("a Controller on a gloo mesh is graphed")
     bptc.KERNEL_LAUNCHES = 0
     out["control"] = _md_steps(params, words, cfg, mesh)
     launches["sharded control step"] = bptc.KERNEL_LAUNCHES
@@ -1502,10 +1526,13 @@ def _md_one_rank(rng, smi: str) -> dict:
     PM.reset_collective_bytes()
     s_ms, s_actions = _serve(sharded, requests, cfg.mppi)
     bc7["sharded control step (1 rank)"] = bptc.KERNEL_LAUNCHES
-    if bc7["sharded control step (1 rank)"] != len(requests):
+    # The sharded Controller on NCCL is graphed too: its
+    # GRAPH_WARMUP eager steps and one replay a request, each counted.
+    n_steps = len(requests) + R.GRAPH_WARMUP
+    if not sharded.graphed or bptc.KERNEL_LAUNCHES != n_steps:
         raise AssertionError(f"BC7 launched {bptc.KERNEL_LAUNCHES} times in "
                              f"{len(requests)} sharded steps")
-    per_step = {k: v // len(requests) for k, v in _md_bytes().items()}
+    per_step = {k: v // n_steps for k, v in _md_bytes().items()}
     u_ms, u_actions = _serve(plain, requests, cfg.mppi)
     diff = max(float(np.abs(s - u).max()) for s, u in zip(s_actions,
                                                           u_actions))
@@ -1513,7 +1540,8 @@ def _md_one_rank(rng, smi: str) -> dict:
         raise AssertionError(f"sharded and unsharded actions differ by "
                              f"{diff}")
     print(f"multi-device: {len(requests)} full-width control steps sharded "
-          f"over 'dp' at 1 rank (NCCL) against the unsharded Controller on "
+          f"over 'dp' at 1 rank (NCCL; both Controllers graphed) against the "
+          f"unsharded Controller on "
           f"the same seed: max action diff {diff:.3g} (atol 1e-6); BC7 "
           f"launches {bc7['sharded control step (1 rank)']}; collective "
           f"bytes per step {per_step}; on {smi}")
@@ -1613,8 +1641,271 @@ def _md_one_rank(rng, smi: str) -> dict:
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     print(f"multi-device: (1, 1) train step loss {loss_s:.9g} (unsharded "
           f"{loss_u:.9g}), parameters within 1e-6; BC7 launches {launches}")
-    dist.destroy_process_group()
+    # The graphs that hold the group's communicators go before the group.
+    del sharded, plain
+    _destroy_world()
     return {"bc7": bc7, "decode": sharded_counts}
+
+
+def _destroy_world() -> None:
+    """Destroy the process group once nothing holds its communicators: the
+    graphs captured on it are freed first."""
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+# (label, iLQR iterations, parallel LQT).
+_MD_GRAPH_CASES = (("MPPI", 0, False), ("iLQR sequential", 2, False),
+                   ("iLQR parallel LQT", 2, True))
+
+
+def _md_graph_case(params, goal, cfg, requests, mesh, label: str,
+                   smi: str) -> int:
+    """A graphed sharded Controller on `mesh` over `requests`, held to the
+    eager sharded control_step on the same noise, bit-equal: the graph
+    replays the eager step's kernels and collectives.  With the parallel
+    LQT the eager step runs under runtime._capturable_linalg, as the
+    capture does (torch routes its batched LU to MAGMA by default, which
+    no capture can hold); its distance from the default-routed eager step
+    is printed.  Also held to the unsharded graphed Controller (atol
+    1e-6), with its BC7 launches and collective bytes a replay against the
+    eager step's.  Returns the graphed sharded Controller's BC7
+    launches."""
+    launches = bptc.KERNEL_LAUNCHES
+    PM.reset_collective_bytes()
+    ctl = R.Controller(params, goal, cfg, seed=_SEED, device="cuda",
+                       mesh=mesh)
+    got, graph_mib = _peak_mib(lambda: [ctl.step(w) for w in requests])
+    launches = bptc.KERNEL_LAUNCHES - launches
+    graph_bytes = _md_bytes()
+    prog = ctl._program
+    PM.reset_collective_bytes()
+    linalg = (R._capturable_linalg() if cfg.ilqr_parallel
+              else contextlib.nullcontext())
+    with linalg:
+        (want, _, gen), eager_mib = _peak_mib(
+            lambda: _eager_serve(params, goal, cfg, requests, mesh))
+    eager_step = {k: v // len(requests) for k, v in _md_bytes().items()}
+    per_replay = {f"{op}/{axis}": v for (op, axis), v in
+                  prog._graph.collective_bytes.items()}
+    n_steps = len(requests) + R.GRAPH_WARMUP
+    if not ctl.graphed or prog.launches_per_replay != 1 or launches != n_steps:
+        raise AssertionError(f"graphed sharded {label}: BC7 launched "
+                             f"{launches} times in {len(requests)} steps")
+    if per_replay != eager_step or graph_bytes != {
+            k: v * n_steps for k, v in eager_step.items()}:
+        raise AssertionError(f"graphed sharded {label}: collective bytes a "
+                             f"replay {per_replay}, in all {graph_bytes}, "
+                             f"against the eager step's {eager_step}")
+    diffs = [float(np.abs(a - w).max()) for a, w in zip(got, want)]
+    if not all(np.array_equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"graphed sharded {label}: actions differ from "
+                             f"the eager sharded step's by {diffs}")
+    routed = ""
+    if cfg.ilqr_parallel:
+        default, _, _ = _eager_serve(params, goal, cfg, requests, mesh)
+        routed = [float(np.abs(a - w).max()) for a, w in zip(got, default)]
+        routed = (f"; against the eager step on torch's default LU routing "
+                  f"(MAGMA): max |action diff| per step {routed}")
+    if not torch.equal(ctl.generator.get_state(), gen.get_state()):
+        raise AssertionError(f"graphed sharded {label}: generator state")
+    plain = R.Controller(params, goal, dataclasses.replace(
+        cfg, rollout_axis=None), seed=_SEED, device="cuda")
+    unsharded = [plain.step(w) for w in requests]
+    udiff = max(float(np.abs(a - u).max()) for a, u in zip(got, unsharded))
+    ubit = all(np.array_equal(a, u) for a, u in zip(got, unsharded))
+    if not plain.graphed or not udiff <= 1e-6:
+        raise AssertionError(f"graphed sharded {label}: actions differ from "
+                             f"the unsharded graphed Controller's by {udiff}")
+    print(f"graphed multi-device, {label}: {len(requests)} full-width steps "
+          f"of a Controller sharded over 'dp' at 1 NCCL rank, each a graph "
+          f"replay, against the eager sharded control_step on the same "
+          f"noise" + (" and LU library" if cfg.ilqr_parallel else "") +
+          f": bit-equal (max |action diff| per step {diffs}){routed}; "
+          f"generator state equal; against the unsharded "
+          f"graphed Controller: max diff {udiff:.3g} (atol 1e-6), bit-equal "
+          f"{ubit}; BC7 launches {launches} ({R.GRAPH_WARMUP} warm-ups, "
+          f"{prog.launches_per_replay} a replay); collective bytes a replay "
+          f"{per_replay}, the eager step's {eager_step}; capture "
+          f"{prog.capture_s:.3f} s (warm-ups included); peak device memory "
+          f"above what was allocated before: graphed {graph_mib:.1f} MiB "
+          f"(capture included), eager {eager_mib:.1f} MiB, on {smi}")
+    return launches
+
+
+def _md_train_times(mesh, batch) -> list:
+    """[(program, card ms, host ms)]: medians of 20 train steps on `mesh`
+    after 5 (tools.step_times: CUDA events between back-to-back steps),
+    "graph" (a _TrainGraph replay, its capture among the warm-ups) and
+    "eager" (train_body), batch 64 of 64x64 BC7, DynamicsConfig(), bf16,
+    each step's words xor'd on the card with the step index, as
+    bench_train_step does."""
+    dcfg = D.DynamicsConfig()
+    words = {k: torch.as_tensor(batch[k]).cuda()
+             for k in ("obs_words", "next_obs_words")}
+    action = torch.as_tensor(batch["action"]).cuda()
+    rows = []
+    for program in ("graph", "eager"):
+        params = D.init_params(dcfg, torch.Generator(
+            device="cuda").manual_seed(_SEED), "cuda")
+        opt = D.make_optimizer(params)
+        graph = None
+        if program == "graph":
+            graph = TL._TrainGraph(params, opt, dcfg, _TRAIN_BATCH, True,
+                                   mesh)
+            graph.batch["action"].copy_(action)
+
+        def step(i, graph=graph, params=params, opt=opt):
+            if graph is not None:
+                for k, w in words.items():
+                    graph.batch[k].copy_(w ^ i)
+                graph()
+            else:
+                TL.train_body(params, opt, dict(
+                    {k: w ^ i for k, w in words.items()}, action=action),
+                    dcfg, True, mesh)
+        card, host = tools.step_times(step, torch.device("cuda"), 5, 20)
+        rows.append((program, statistics.median(card),
+                     statistics.median(host)))
+        del graph, step
+    return rows
+
+
+def _md_graphed_one_rank(smi: str) -> dict:
+    """The sharded steps' one-program form at one rank over NCCL, in a fresh
+    world of one (the phase before destroys its own): graphed sharded
+    Controllers (rollouts over "dp"; _GRAPH_STEPS full-width steps each for
+    MPPI on the random weights and for 2 iLQR iterations, sequential and
+    parallel LQT, on damped dynamics toward a random goal), each held to
+    the eager sharded step and the unsharded graphed Controller
+    (_md_graph_case); a graphed sharded PipelinedController one step
+    behind, with a step under sync debug "error"; the graphed and the
+    eager sharded step's period and host enqueue (bench_control_step.bench
+    on the mesh, median of 20 after 5); and train() on the (1, 1) mesh,
+    each step a replay, against the eager sharded train step over
+    _GRAPH_TRAIN_STEPS full-width steps (batch 64 of 64x64 BC7,
+    DynamicsConfig(), bf16) with deterministic cuDNN: bit-equal.  Returns
+    BC7's launches by path."""
+    mesh = PM.make_mesh((1, 1), device="cuda")
+    if dist.get_backend() != "nccl" or not PM.capturable(mesh):
+        raise AssertionError(f"graphed one-rank backend "
+                             f"{dist.get_backend()}")
+    base = R.ControllerConfig(rollout_axis="dp")
+    dcfg, mcfg = base.dynamics, base.mppi
+    rng = np.random.default_rng([_SEED, 15])
+    params = D.init_params(dcfg, torch.Generator(device="cuda").manual_seed(
+        _SEED), "cuda")
+    zero = torch.zeros(dcfg.latent_dim, device="cuda")
+    goal = torch.from_numpy((0.5 * rng.standard_normal(dcfg.latent_dim))
+                            .astype(np.float32)).cuda()
+    requests = _requests(rng, _GRAPH_STEPS, dcfg)
+    bc7 = {"graphed sharded control step (1 rank)": 0}
+    for label, n_ilqr, parallel in _MD_GRAPH_CASES:
+        cfg = dataclasses.replace(base, n_ilqr_iterations=n_ilqr,
+                                  ilqr_parallel=parallel)
+        prm, g = (_damped(params), goal) if n_ilqr else (params, zero)
+        bc7["graphed sharded control step (1 rank)"] += _md_graph_case(
+            prm, g, cfg, requests, mesh, label, smi)
+
+    ctl = R.Controller(params, zero, base, seed=_SEED, device="cuda",
+                       mesh=mesh)
+    launches = bptc.KERNEL_LAUNCHES
+    pipe = R.PipelinedController(params, zero, base, seed=_SEED,
+                                 device="cuda", mesh=mesh)
+    piped = [pipe.step(w) for w in requests] + [pipe.flush()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = pipe.step(requests[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    last = pipe.flush()
+    bc7["graphed sharded pipelined (1 rank)"] = \
+        bptc.KERNEL_LAUNCHES - launches
+    want = [ctl.step(w) for w in requests]
+    if (not pipe.graphed or piped[0] is not None or first is not None
+            or last is None or bc7["graphed sharded pipelined (1 rank)"]
+            != len(requests) + 1 + R.GRAPH_WARMUP
+            or not all(np.array_equal(a, w)
+                       for a, w in zip(piped[1:], want))):
+        raise AssertionError("graphed sharded PipelinedController")
+    _check_action(last, mcfg, pipe.diag)
+    print(f"graphed multi-device, pipelined: {len(requests)} requests through "
+          f"a PipelinedController sharded over 'dp' at 1 NCCL rank, graphed: "
+          f"actions bit-equal to the graphed sharded Controller's one step "
+          f"later; one step enqueued under torch.cuda.set_sync_debug_mode("
+          f"'error') without a synchronising call, on {smi}")
+    del ctl, pipe
+
+    rows = []
+    for label, n_ilqr, parallel in _MD_GRAPH_CASES:
+        cfg = dataclasses.replace(base, n_ilqr_iterations=n_ilqr,
+                                  ilqr_parallel=parallel)
+        for program in ("graph", "eager"):
+            out = BCS.bench(cfg, torch.device("cuda"), 5, 20, program,
+                            mesh=mesh)
+            rows.append((label, program, statistics.median(out["card_ms"]),
+                         statistics.median(out["host_ms"])))
+    print("graphed multi-device, sharded step period by CUDA events between "
+          "back-to-back steps and the host's enqueue (bench_control_step."
+          "bench on the (1, 1) NCCL mesh, median of 20 after 5; random "
+          "weights): " + "; ".join(
+              f"{label} {program} {card:.3f} ms (host {host:.3f} ms)"
+              for label, program, card, host in rows) + f", on {smi}")
+
+    tcfg = TL.TrainConfig(dynamics=D.DynamicsConfig(),
+                          batch_size=_TRAIN_BATCH, n_steps=_GRAPH_TRAIN_STEPS,
+                          compressed_obs=True, mesh_shape=(1, 1))
+    env = TL.SyntheticVisualEnv(tcfg.dynamics, tcfg.seed, compressed=True)
+    batches = [env.sample_batch(np.random.default_rng(
+        np.random.SeedSequence([tcfg.seed, i])), tcfg.batch_size)
+        for i in range(tcfg.n_steps)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = bptc.KERNEL_LAUNCHES
+        g_losses, g_params, g_opt, tprog = _graphed_train(tcfg, batches)
+        bc7["graphed sharded train step (1 rank)"] = \
+            bptc.KERNEL_LAUNCHES - launches
+        PM.reset_collective_bytes()
+        e_losses, e_params, e_opt = _eager_train(tcfg, batches, mesh)
+        eager_step = {k: v // tcfg.n_steps for k, v in _md_bytes().items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bit, diff = _state_diff((g_params, g_opt), (e_params, e_opt))
+    per_replay = {f"{op}/{axis}": v for (op, axis), v in
+                  tprog._graph.collective_bytes.items()}
+    if (tprog.mesh is None or tprog.launches_per_replay != 2
+            or bc7["graphed sharded train step (1 rank)"]
+            != 2 * (tcfg.n_steps + R.GRAPH_WARMUP)
+            or per_replay != eager_step):
+        raise AssertionError(f"graphed sharded train step: launches "
+                             f"{bc7['graphed sharded train step (1 rank)']}"
+                             f", bytes a replay {per_replay} against "
+                             f"{eager_step}")
+    if g_losses != e_losses or not bit:
+        raise AssertionError(f"graphed sharded train step: losses {g_losses} "
+                             f"against {e_losses}, state max diff {diff}")
+    print(f"graphed multi-device, train: {tcfg.n_steps} steps of train() on "
+          f"the (1, 1) NCCL mesh (batch {tcfg.batch_size}, 64x64 BC7, "
+          f"DynamicsConfig(), bf16), each a replay holding the dp "
+          f"all_reduce, against the eager sharded train step on the same "
+          f"batches with cuDNN deterministic: losses and parameters, moments "
+          f"and step counts bit-equal; losses {g_losses}; BC7 launches "
+          f"{bc7['graphed sharded train step (1 rank)']} ({R.GRAPH_WARMUP} "
+          f"warm-ups, {tprog.launches_per_replay} a replay); collective bytes "
+          f"a replay {per_replay}, the eager step's {eager_step}; capture "
+          f"{tprog.capture_s:.3f} s (warm-ups included), on {smi}")
+    del tprog, g_params, g_opt
+    rows = _md_train_times(mesh, batches[0])
+    print("graphed multi-device, train step period by CUDA events between "
+          "back-to-back steps and the host's enqueue on the (1, 1) NCCL mesh "
+          "(median of 20 after 5; batch 64, DynamicsConfig(), bf16): "
+          + "; ".join(f"{program} {card:.3f} ms (host {host:.3f} ms)"
+                      for program, card, host in rows) + f", on {smi}")
+    _destroy_world()
+    return bc7
 
 
 def _md_ranks(smi: str) -> dict:
@@ -1684,7 +1975,8 @@ def _md_ranks(smi: str) -> dict:
                 bc7[f"{path} ({n} ranks)"] = sum(o["launches"][path]
                                                  for o in outs)
             control = outs[0]["control"]
-            print(f"multi-device: {n} ranks on one card (gloo): full-width "
+            print(f"multi-device: {n} ranks on one card (gloo; a Controller "
+                  f"there is eager, graphed False): full-width "
                   f"sharded control step within rtol 3e-5 / atol 3e-6 of "
                   f"the unsharded one on the card (6 steps a rank; host ms, "
                   f"rank 0, median of the last 5: {control[2]:.3f}; "
@@ -1706,8 +1998,9 @@ def _md_ranks(smi: str) -> dict:
 
 def _multi_device_phase(rng, smi: str) -> tuple:
     one = _phase("multi-device 1 rank", _md_one_rank, rng, smi)
-    bc7 = dict(one["bc7"], **_phase("multi-device 2 and 4 ranks", _md_ranks,
-                                   smi))
+    bc7 = dict(one["bc7"], **_phase("graphed multi-device 1 rank",
+                                   _md_graphed_one_rank, smi))
+    bc7.update(_phase("multi-device 2 and 4 ranks", _md_ranks, smi))
     return bc7, one["decode"]
 
 

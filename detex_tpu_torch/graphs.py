@@ -27,10 +27,19 @@ that stream into the graph's own memory pool.  A failed capture or replay
 raises: nothing falls back to the eager body.  The CPU has no graphs, so
 there the callers run their bodies eagerly.
 
-Launch counts: each kernel wrapper adds one to its count where it launches
-its kernel (ops/*.KERNEL_LAUNCHES).  At capture a wrapper counts a launch
-that was only recorded; Graph takes those counts back and adds them at
-every replay, when the kernels run.
+On a mesh whose groups are all NCCL (parallel/mesh.capturable), the
+control and train steps are captured with their collectives, the
+counterpart of jax.jit with a mesh: one replay runs the step's kernels and
+its NCCL collectives.  The warm-ups make each group's communicator (NCCL
+makes one at a group's first collective), so the capture never holds a
+group's first collective.
+
+Counts: each kernel wrapper adds one to its count where it launches its
+kernel (ops/*.KERNEL_LAUNCHES), and each collective helper its bytes to
+parallel/mesh.COLLECTIVE_BYTES where it is called.  At capture they count a
+launch or a collective that was only recorded; Graph takes those counts
+back (take_back) and adds them at every replay (add_back), when the work
+runs.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import time
 import torch
 
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
+from detex_tpu_torch.parallel import mesh as mesh_mod
 
 # Eager runs of the body before a capture.  The first makes what the body
 # creates lazily; the second runs on what the first left, as every replay
@@ -77,17 +87,58 @@ def add_launches(delta: dict) -> None:
             raise KeyError(f"no launch count named {name!r}")
 
 
+def snapshot() -> tuple:
+    """The counters a capture moves to its replays: (launch_counts(), a copy
+    of mesh.COLLECTIVE_BYTES)."""
+    return launch_counts(), collections.Counter(mesh_mod.COLLECTIVE_BYTES)
+
+
+def take_back(before: tuple) -> tuple:
+    """Undo what the counters gained since `before` (a snapshot()), and
+    return it: (kernel launches by name, collective bytes by (collective,
+    axis)), the counts of one replay of what ran in between.  A key that
+    was not in COLLECTIVE_BYTES before is removed again."""
+    launches_before, bytes_before = before
+    after = launch_counts()
+    launches = {k: after[k] - launches_before[k] for k in after
+                if after[k] != launches_before[k]}
+    add_launches({k: -n for k, n in launches.items()})
+    nbytes = {k: n - bytes_before[k]
+              for k, n in mesh_mod.COLLECTIVE_BYTES.items()
+              if n != bytes_before[k]}
+    for k, n in nbytes.items():
+        mesh_mod.COLLECTIVE_BYTES[k] -= n
+        if k not in bytes_before:
+            del mesh_mod.COLLECTIVE_BYTES[k]
+    return launches, nbytes
+
+
+def add_back(counts: tuple) -> None:
+    """Add one replay's counts (take_back's result) to the counters."""
+    launches, nbytes = counts
+    add_launches(launches)
+    mesh_mod.COLLECTIVE_BYTES.update(nbytes)
+
+
 class Graph:
     """One CUDA graph on `device`: capture(body, reset) captures body() once;
     reset(), if given, runs on the capture's stream between the warm-ups
     and the capture (to undo what the warm-ups changed).  After the capture
     `out` is what the captured body returned: tensors in the graph's pool,
     which every replay overwrites.  `launches` holds the kernel launches of
-    one replay by count name, and `capture_s` the capture's wall time,
-    warm-ups included.  The graph keeps neither callable, so an owner that
-    passes its own methods makes no reference cycle: a dropped owner frees
-    its graph and pool at once, never in a garbage collection that could
-    fall inside another capture."""
+    one replay by count name, `collective_bytes` its collectives' bytes by
+    (collective, axis), and `capture_s` the capture's wall time, warm-ups
+    included.  The graph keeps neither callable, so an owner that passes
+    its own methods makes no reference cycle: a dropped owner frees its
+    graph and pool at once, never in a garbage collection that could fall
+    inside another capture.
+
+    The capture runs in "thread_local" mode, which restricts only the
+    capturing thread: in torch's default ("global") mode a potentially
+    unsafe CUDA call from any other thread during a capture is refused and
+    invalidates it, and ProcessGroupNCCL's watchdog thread queries the
+    events of NCCL collectives (the warm-ups' among them) whenever it
+    wakes, in every process that has an NCCL group."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -97,6 +148,7 @@ class Graph:
         self.graph = None
         self.out = None
         self.launches = {}
+        self.collective_bytes = {}
         self.capture_s = None
 
     def capture(self, body, reset=None) -> None:
@@ -119,19 +171,18 @@ class Graph:
             # collection, so none is run before it: only held off during it.
             collecting = gc.isenabled()
             gc.disable()
-            before = launch_counts()
+            before = snapshot()
             try:
-                with torch.cuda.graph(graph, stream=stream):
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
                     out = body()
             finally:
                 if collecting:
                     gc.enable()
-                # The wrappers counted launches that were only recorded.
-                after = launch_counts()
-                add_launches({k: before[k] - after[k] for k in after})
+                # The wrappers counted work that was only recorded.
+                launches, nbytes = take_back(before)
         current.wait_stream(stream)
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
+        self.launches, self.collective_bytes = launches, nbytes
         self.graph, self.out = graph, out
         self.capture_s = time.perf_counter() - t0
 
@@ -140,7 +191,7 @@ class Graph:
         if self.graph is None:
             raise RuntimeError("replay before capture")
         self.graph.replay()
-        add_launches(self.launches)
+        add_back((self.launches, self.collective_bytes))
         return self.out
 
 

@@ -7,8 +7,10 @@ and, with n_ilqr_iterations > 0, refines the plan with iLQR, with no host
 round trip inside the step.  The training step decodes its batches with
 the same kernel (decode_obs_batch).
 
-On one card (no mesh) a Controller serves the step as one captured CUDA
-graph (_StepGraph), the counterpart of the JAX Controller's jitted step.
+On a card a Controller serves the step as one captured CUDA graph
+(_StepGraph), the counterpart of the JAX Controller's jitted step: with no
+mesh, and with a mesh whose groups are all NCCL, whose collectives the
+graph holds (jax.jit with a mesh).  A gloo mesh and the CPU stay eager.
 
 Multi-rank: with ControllerConfig.rollout_axis and a mesh
 (parallel/mesh.py), every rank decodes the observation, encodes it and
@@ -36,6 +38,7 @@ from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import ilqr as ilqr_mod
 from detex_tpu_torch.mpc import mppi as mppi_mod
 from detex_tpu_torch.ops import bptc
+from detex_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,15 +158,16 @@ def control_step(params, nominal, generator, obs_words, goal_z,
 
 def step_body(params, nominal: torch.Tensor, words: torch.Tensor,
               goal_z: torch.Tensor, eps: torch.Tensor,
-              cfg: ControllerConfig) -> tuple:
+              cfg: ControllerConfig, mesh=None) -> tuple:
     """The body of the captured step on its static buffers: control_step
-    with the noise `eps`, its action and diagnostics packed into one (A +
-    n_diag,) float32 tensor, then the shifted plan copied into `nominal`,
-    the last op.  That copy is the port's form of JAX's donate_argnums=(1,):
-    the next run plans from the plan this one left.  Returns (packed, the
+    with the noise `eps` (whole; on a mesh each rank keeps its rows) on
+    `mesh`, its action and diagnostics packed into one (A + n_diag,)
+    float32 tensor, then the shifted plan copied into `nominal`, the last
+    op.  That copy is the port's form of JAX's donate_argnums=(1,): the
+    next run plans from the plan this one left.  Returns (packed, the
     diagnostics' names); unpack_step undoes the packing."""
     action, shifted, diag = control_step(params, nominal, None, words, goal_z,
-                                         cfg, eps=eps)
+                                         cfg, eps=eps, mesh=mesh)
     packed = torch.cat([action, torch.stack(list(diag.values()))])
     nominal.copy_(shifted)
     return packed, tuple(diag)
@@ -192,9 +196,12 @@ def _capturable_linalg():
 
 
 class _StepGraph:
-    """control_step as one captured CUDA graph on one card: the counterpart
-    of jax.jit(control_step, donate_argnums=(1,)) at
-    detex_tpu/mpc/runtime.py:158-160.
+    """control_step as one captured CUDA graph on a card: the counterpart of
+    jax.jit(partial(control_step, mesh=mesh), donate_argnums=(1,)) at
+    detex_tpu/mpc/runtime.py:158-160.  With a mesh (NCCL groups only,
+    mesh.capturable) the graph holds the step's collectives too: the
+    warm-ups make the groups' communicators, and each replay counts the
+    collectives' bytes (graphs.Graph).
 
     Static device buffers hold the observation words (N_blocks, 4), the
     MPPI noise (K, H, A) and the nominal plan (H, A), which every replay
@@ -208,13 +215,13 @@ class _StepGraph:
     replay raises; there is no eager fallback."""
 
     def __init__(self, params, nominal: torch.Tensor, goal_z: torch.Tensor,
-                 cfg: ControllerConfig):
+                 cfg: ControllerConfig, mesh=None):
         if nominal.device.type != "cuda":
             raise ValueError(f"a captured step needs a CUDA device, not "
                              f"{nominal.device}")
         mcfg, side = cfg.mppi, cfg.dynamics.image_size
-        self.params, self.nominal, self.goal_z, self.cfg = (
-            params, nominal, goal_z, cfg)
+        self.params, self.nominal, self.goal_z, self.cfg, self.mesh = (
+            params, nominal, goal_z, cfg, mesh)
         self.words = torch.zeros(((side // 4) ** 2, 4), dtype=torch.int32,
                                  device=nominal.device)
         self.eps = torch.zeros((mcfg.n_rollouts, mcfg.horizon,
@@ -265,7 +272,7 @@ class _StepGraph:
 
     def _body(self):
         return step_body(self.params, self.nominal, self.words, self.goal_z,
-                         self.eps, self.cfg)
+                         self.eps, self.cfg, self.mesh)
 
     def __call__(self, generator) -> tuple:
         """Draw the noise, replay, and return (action, diagnostics) from a
@@ -280,12 +287,15 @@ class _StepGraph:
 class Controller:
     """Serves control_step one observation at a time on `device` (the card
     unless device="cpu"), keeping the nominal plan and a seeded generator
-    between steps.  On a card with no mesh every step is one replay of a
-    captured CUDA graph (`graphed`; `nominal` is then the graph's buffer,
-    updated in place); on the CPU and with a mesh the step runs eagerly.
-    With a mesh, every rank of it runs its own Controller on the same
-    observations and seed (control_step's `mesh`): gloo's collectives copy
-    through the host, which a capture cannot hold."""
+    between steps.  On a card every step is one replay of a captured CUDA
+    graph (`graphed`; `nominal` is then the graph's buffer, updated in
+    place) with no mesh and with a mesh whose groups are all NCCL
+    (mesh.capturable, decided here from the backends); on the CPU and on a
+    gloo mesh, whose collectives copy through the host, which a capture
+    cannot hold, the step runs eagerly.  With a mesh, every rank of it runs
+    its own Controller on the same observations and seed (control_step's
+    `mesh`); on NCCL every rank captures at its first step and replays at
+    each step after, so the ranks' collectives stay in step."""
 
     def __init__(self, params, goal_z: torch.Tensor, cfg: ControllerConfig,
                  seed: int = 0, device="cuda", mesh=None):
@@ -301,9 +311,10 @@ class Controller:
                                    dtype=torch.float32, device=self.device)
         self.diag = None
         self._program = None
-        if self.device.type == "cuda" and mesh is None:
+        if self.device.type == "cuda" and (mesh is None
+                                           or mesh_mod.capturable(mesh)):
             self._program = _StepGraph(params, self.nominal, self.goal_z,
-                                       cfg)
+                                       cfg, mesh)
 
     @property
     def graphed(self) -> bool:

@@ -5,8 +5,9 @@ the same numpy code, so one seed gives the same batches, byte for byte,
 in both packages.  With compressed observations the training step decodes
 the BC7 batches on the device with the control step's decode
 (runtime.decode_obs_batch: one BC7 kernel launch per batch of words).
-On one card with no mesh the step is one captured CUDA graph
-(_TrainGraph), the counterpart of the JAX loop's jitted step.
+On a card the step is one captured CUDA graph (_TrainGraph), the
+counterpart of the JAX loop's jitted step: with no mesh, and with a mesh
+whose groups are all NCCL, whose gradient all_reduce the graph holds.
 Checkpoints are written every `checkpoint_every` steps and a run resumes
 deterministically from `checkpoint_dir/latest`: the data stream is
 re-seeded from the restored step counter.
@@ -239,17 +240,19 @@ def make_train_step(dcfg: D.DynamicsConfig, optimizer,
 
 
 def train_body(params, optimizer, batch: Dict[str, torch.Tensor],
-               dcfg: D.DynamicsConfig, compressed_obs: bool
+               dcfg: D.DynamicsConfig, compressed_obs: bool, mesh=None
                ) -> torch.Tensor:
     """The body of the captured train step on its static buffers:
     make_train_step's step (visual_step's decode_batch then
-    dynamics.train_step with compressed_obs; train_step alone without),
-    returning the loss, a 0-d tensor.  The parameters and the optimizer's
-    state are updated in place: the port's form of JAX's
-    donate_argnums=(0, 1) (detex_tpu/mpc/train_loop.py:218-233)."""
+    dynamics.train_step with compressed_obs; train_step alone without) on
+    `mesh` (`batch` is then this rank's dp rows and the parameters its tp
+    shards), returning the loss, a 0-d tensor (the global batch's on a
+    mesh).  The parameters and the optimizer's state are updated in place:
+    the port's form of JAX's donate_argnums=(0, 1)
+    (detex_tpu/mpc/train_loop.py:218-233)."""
     if compressed_obs:
         batch = decode_batch(batch, dcfg.image_size)
-    return D.train_step(params, optimizer, batch, dcfg)[1]
+    return D.train_step(params, optimizer, batch, dcfg, mesh)[1]
 
 
 def _step_state(params, optimizer) -> list:
@@ -282,35 +285,41 @@ def restore_step_state(params, optimizer, saved: list) -> None:
 
 
 class _TrainGraph:
-    """The train step as one captured CUDA graph on one card: the
+    """The train step as one captured CUDA graph on a card: the
     counterpart of jax.jit(visual_step, donate_argnums=(0, 1)) at
-    detex_tpu/mpc/train_loop.py:218-233.
+    detex_tpu/mpc/train_loop.py:218-233, and with a mesh (NCCL groups
+    only, mesh.capturable) of that step jitted on the mesh's shardings,
+    its gradient all_reduce over "dp" inside the graph.
 
-    Static device buffers hold the batch: obs_words and next_obs_words
+    Static device buffers hold the batch, this rank's dp rows of it on a
+    mesh (B = batch_size // dp): obs_words and next_obs_words
     ((B, N_blocks, 4) int32) with compressed observations, else obs and
     next_obs ((B, H, W, C) uint8), and action ((B, A) float32).  load()
-    copies a host batch in through one of two reused pinned buffers, on
-    the current stream and without waiting for the replay before it; a
-    call replays train_body on them, updating the parameters and the
-    optimizer's moments and step count in place, and returns a copy of
-    the loss.  The graph is captured at the first call (graphs.Graph):
-    GRAPH_WARMUP eager steps on a side stream, which train, so the
-    parameters and the optimizer's state are saved before them and put
-    back in place after them; the first replay is then step 1 of the
+    cuts a host batch to this rank's rows (mesh.shard_batch) and copies
+    them in through one of two reused pinned buffers, on the current
+    stream and without waiting for the replay before it; a call replays
+    train_body on them, updating the parameters and the optimizer's
+    moments and step count in place, and returns a copy of the loss.  The
+    graph is captured at the first call (graphs.Graph): GRAPH_WARMUP eager
+    steps on a side stream, which train, so the parameters and the
+    optimizer's state are saved before them and put back in place after
+    them; the first replay is then step 1 of the
     trajectory the eager loop takes.  The optimizer must be capturable
     (dynamics.make_optimizer on a card).  A failed capture or replay
     raises; there is no eager fallback."""
 
     def __init__(self, params, optimizer, dcfg: D.DynamicsConfig,
-                 batch_size: int, compressed_obs: bool):
+                 batch_size: int, compressed_obs: bool, mesh=None):
         leaves = D.param_leaves(params)
         device = leaves[0].device
         if device.type != "cuda":
             raise ValueError(f"a captured train step needs a CUDA device, "
                              f"not {device}")
         self.params, self.optimizer, self.dcfg = params, optimizer, dcfg
-        self.compressed_obs = compressed_obs
+        self.compressed_obs, self.mesh = compressed_obs, mesh
         s, b = dcfg.image_size, batch_size
+        if mesh is not None:
+            b //= mesh_mod.axis_size(mesh, "dp")
         obs = (((b, (s // 4) ** 2, 4), torch.int32) if compressed_obs
                else ((b, s, s, dcfg.channels), torch.uint8))
         names = (("obs_words", "next_obs_words") if compressed_obs
@@ -328,7 +337,8 @@ class _TrainGraph:
         self._graph = graphs.Graph(device)
 
     def load(self, batch: Dict[str, np.ndarray]) -> None:
-        """Copy a host batch (numpy arrays or CPU tensors) into the static
+        """Copy a host batch (numpy arrays or CPU tensors; the global batch
+        on a mesh, of which this rank's dp rows are kept) into the static
         buffers: into a pinned buffer on the host, then up with
         non_blocking=True on the current stream.  The pinned buffer was
         last read by the upload two loads before, which the card has
@@ -340,6 +350,8 @@ class _TrainGraph:
         host = self._host[slot]
         for k, buf in self.batch.items():
             src = torch.as_tensor(batch[k])
+            if self.mesh is not None:
+                src = mesh_mod.shard_batch(src, self.mesh, "dp")
             if tuple(src.shape) != tuple(buf.shape) or \
                     src.dtype != buf.dtype:
                 raise ValueError(f"batch {k} of shape {tuple(src.shape)} "
@@ -364,7 +376,7 @@ class _TrainGraph:
 
     def _body(self) -> torch.Tensor:
         return train_body(self.params, self.optimizer, self.batch, self.dcfg,
-                          self.compressed_obs)
+                          self.compressed_obs, self.mesh)
 
     @property
     def capture_s(self):
@@ -407,13 +419,20 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
     returns (params, optimizer, last_loss): with a mesh, this rank's
     shards and the global batch's loss.
 
-    On a card with no mesh every step is one replay of a captured CUDA
-    graph (_TrainGraph), captured at the first step, after the restore;
-    on the CPU and with a mesh (gloo's collectives copy through the host,
-    which a capture cannot hold) each step runs eagerly (make_train_step).
-    Checkpoints read the live parameters and optimizer state, which the
-    graph updates in place.  Resumes from cfg.checkpoint_dir/latest if
-    present."""
+    On a card every step is one replay of a captured CUDA graph
+    (_TrainGraph), captured at the first step, after the restore, with no
+    mesh and with a mesh whose groups are all NCCL (mesh.capturable,
+    decided from the backends before any capture); on the CPU and on a
+    gloo mesh (gloo's collectives copy through the host, which a capture
+    cannot hold) each step runs eagerly (make_train_step).  Checkpoints
+    read the live parameters and optimizer state, which the graph updates
+    in place; on a mesh their gathers run eagerly between replays, on the
+    communicators the graph's all_reduce uses.  NCCL runs a communicator's
+    collectives in the order each rank issues them, so every rank must
+    replay and gather in the same order: every rank runs this same loop
+    (same n_steps, checkpoint_every and resume point), as a launcher that
+    starts them all with one config does.  Resumes from
+    cfg.checkpoint_dir/latest if present."""
     device = resolve_device(device)
     mesh = (None if cfg.mesh_shape is None
             else mesh_mod.make_mesh(cfg.mesh_shape, device=device))
@@ -450,9 +469,10 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
         optimizer.load_state_dict(opt_state)
 
     graph = step_fn = None
-    if device.type == "cuda" and mesh is None:
+    if device.type == "cuda" and (mesh is None
+                                  or mesh_mod.capturable(mesh)):
         graph = _TrainGraph(params, optimizer, dcfg, cfg.batch_size,
-                            cfg.compressed_obs)
+                            cfg.compressed_obs, mesh)
     else:
         step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs, mesh)
     loss = torch.zeros(())

@@ -51,7 +51,10 @@ def initialize(coordinator_address: Optional[str] = None,
     share a card use gloo).  On a CUDA device the rank's card is
     cuda:LOCAL_RANK (rank modulo the card count without LOCAL_RANK); a
     CUDA device where there is none raises.  Collectives give up after
-    `timeout`."""
+    `timeout`.  An NCCL group needs no setting for a CUDA graph to hold its
+    collectives (mesh.capturable, graphs.Graph): each rank's warm-ups make
+    the communicators, and every rank captures and replays in the same
+    order."""
     if dist.is_initialized():
         return
     env = os.environ

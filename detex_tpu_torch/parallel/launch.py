@@ -2,6 +2,7 @@
 spawned process on this host; the launcher of the port's multi-rank tests,
 chip_smoke.py's multi-device phase and tools/bench_scaling.
 
+    results = run_ranks(fn, world=4, args=(...))          # on the cards
     results = run_ranks(fn, world=4, args=(...), device="cpu")
 
 Each rank joins the group through a FileStore in a private directory
@@ -25,6 +26,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from detex_tpu_torch import resolve_device
 from detex_tpu_torch.parallel import distributed
 
 
@@ -51,14 +53,16 @@ def _rank_main(fn, rank: int, world: int, workdir: str, device: str,
 
 
 def run_ranks(fn: Callable, world: int, args: Sequence = (), *,
-              device: str = "cpu", backend: Optional[str] = None,
+              device="cuda", backend: Optional[str] = None,
               timeout: float = 120.0, env: Optional[dict] = None) -> list:
     """fn(rank, *args) on `world` spawned ranks; their results in rank
     order.  `fn` must be importable (a module-level function).  `env` is
-    set in each rank before it joins; `device` and `backend` go to
-    distributed.initialize (a CUDA device puts rank r on card r modulo the
-    card count).  Raises RuntimeError naming the ranks that failed or ran
-    past `timeout` seconds."""
+    set in each rank before it joins; `device` (the card unless
+    device="cpu"; a CUDA device where there is none raises before any rank
+    starts) and `backend` go to distributed.initialize (a CUDA device puts
+    rank r on card r modulo the card count).  Raises RuntimeError naming
+    the ranks that failed or ran past `timeout` seconds."""
+    device = str(resolve_device(device))
     with tempfile.TemporaryDirectory() as tmp:
         # The arguments go by file: a spawn pipe holds 64 KiB, and a rank
         # reads it only after importing, so larger arguments would start

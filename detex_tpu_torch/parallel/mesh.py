@@ -44,6 +44,9 @@ Axis = Union[str, Sequence[str]]
 # Bytes of each collective's result, by (collective, axis name): an
 # all_reduce counts its buffer once per axis it reduces over, an
 # all_gather its gathered result.  Reset with reset_collective_bytes().
+# A helper counts when it is called; under a CUDA graph's capture that
+# call only records the collective, so graphs.Graph takes the capture's
+# bytes back and adds them at every replay, when the collective runs.
 COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 
@@ -53,7 +56,11 @@ def reset_collective_bytes() -> None:
 
 def world_of_one(device: torch.device) -> None:
     """Give a process that no launcher started a process group of one rank
-    (an in-memory HashStore); a no-op where a group exists."""
+    (an in-memory HashStore); a no-op where a group exists.  On a card the
+    group is NCCL, and a CUDA graph can hold its collectives (capturable):
+    that needs no setting here, since NCCL makes each group's communicator
+    at its first collective, which a capture's eager warm-ups run, and the
+    capture itself runs in "thread_local" mode (graphs.Graph)."""
     if dist.is_initialized():
         return
     if device.type == "cuda":
@@ -61,6 +68,18 @@ def world_of_one(device: torch.device) -> None:
                               if device.index is None else device.index)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             store=dist.HashStore(), rank=0, world_size=1)
+
+
+def capturable(mesh: DeviceMesh) -> bool:
+    """Whether a step on `mesh` can be captured as one CUDA graph: the mesh
+    is on a CUDA device and every axis's group is NCCL, whose collectives
+    are kernels on the card's streams.  gloo copies a CUDA tensor through
+    the host (_buffer) and waits for it there, which a capture cannot
+    hold.  The answer comes from the groups' backends, before any capture;
+    nothing finds it out by catching a failed one."""
+    return mesh.device_type == "cuda" and all(
+        dist.get_backend(mesh.get_group(a)) == "nccl"
+        for a in mesh.mesh_dim_names)
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,

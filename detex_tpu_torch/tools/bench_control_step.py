@@ -75,16 +75,19 @@ def _setup(cfg: R.ControllerConfig, device: torch.device):
 
 @torch.no_grad()
 def bench(cfg: R.ControllerConfig, device: torch.device, warmup: int,
-          steps: int, program: str = "eager") -> dict:
+          steps: int, program: str = "eager", mesh=None) -> dict:
     """Per-step card and host ms of `steps` control steps after `warmup` in
     `program` ("graph" or "eager"), the BC7 launches per step, the
     graph's capture seconds and the first action's distance from a fresh
-    Controller's; raises if that is over ATOL or not finite."""
+    Controller's; raises if that is over ATOL or not finite.  With `mesh`
+    (and cfg.rollout_axis) the step is the sharded one, its graph holding
+    the collectives (an NCCL mesh: runtime.Controller)."""
     params, obs, goal = _setup(cfg, device)
     words = torch.from_numpy(obs).to(device)
     carry, capture_s = {}, None
     if program == "graph":
-        ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device)
+        ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device,
+                           mesh=mesh)
         prog = ctl._program
         prog.load(words)
         prog.capture()      # the generator and the nominal stay untouched
@@ -103,7 +106,8 @@ def bench(cfg: R.ControllerConfig, device: torch.device, warmup: int,
 
         def step(i):
             action, carry["nominal"], _ = R.control_step(
-                params, carry["nominal"], generator, words ^ i, goal, cfg)
+                params, carry["nominal"], generator, words ^ i, goal, cfg,
+                mesh=mesh)
             if i == 0:
                 carry["first"] = action
 
@@ -111,7 +115,8 @@ def bench(cfg: R.ControllerConfig, device: torch.device, warmup: int,
     card_ms, host_ms = tools.step_times(step, device, warmup, steps)
     launches = bptc.KERNEL_LAUNCHES - launches
     first = carry["first"].cpu().numpy()
-    ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device)
+    ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device,
+                       mesh=mesh)
     want = ctl.step(obs)
     atol = ATOL_LU_ROUTED if (program == "eager" and ctl.graphed
                               and cfg.n_ilqr_iterations

@@ -17,7 +17,12 @@ So on one card, as the JAX tool says of its virtual CPU mesh, the ranks
 share one device and solves/s cannot improve with n: the run measures
 the overhead of partitioning (efficiency 1.0 means the sharded program
 wastes nothing against the unsharded one on equal silicon), with gloo's
-host copies in it.  Prints one JSON line per rank count, then a summary.
+host copies in it.  NCCL rows are timed twice, with a "program" key as
+the other benches have: "graph", the step captured as one CUDA graph with
+its collectives (graphs.Graph; the MPPI noise drawn outside it, the LQT's
+LU on cuSOLVER/cuBLAS, runtime._capturable_linalg), and "eager"; gloo
+rows, which a capture cannot hold, are "eager" only.  Prints one JSON line
+per row, then a summary.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import json
 import numpy as np
 import torch
 
-from detex_tpu_torch import tools
+from detex_tpu_torch import graphs, tools
 from detex_tpu_torch.mpc import parallel_lqr as plqr
+from detex_tpu_torch.mpc import runtime
 from detex_tpu_torch.parallel import launch
 from detex_tpu_torch.parallel import mesh as mesh_mod
 from detex_tpu_torch.tools import diag_mppi_gap
@@ -49,35 +55,56 @@ def _lqt_problem(h: int, n: int, m: int, device):
                               device=device) for a in arrays)
 
 
-def _rank(rank, device_name: str, args: dict) -> dict:
-    device = tools.open_device(device_name)
-    if args["lqt"]:
-        prob = _lqt_problem(args["lqt_horizon"], args["state_dim"],
-                            args["action_dim"], device)
-        mesh = mesh_mod.make_mesh(None, ("sp",), device=device)
+def _lqt(device, args: dict, program: str):
+    """One horizon-sharded LQT backward over "sp", eager or as the replay
+    of its captured graph."""
+    prob = _lqt_problem(args["lqt_horizon"], args["state_dim"],
+                        args["action_dim"], device)
+    mesh = mesh_mod.make_mesh(None, ("sp",), device=device)
 
-        def fn():
-            return plqr.lqt_backward_parallel_sharded(*prob, mesh=mesh,
-                                                      axis="sp")
-    else:
-        fn = diag_mppi_gap.solve(device, "sharded", args["rollouts"],
-                                 args["horizon"])
-    mesh_mod.reset_collective_bytes()
-    fn()
-    per_call = sum(mesh_mod.COLLECTIVE_BYTES.values())
-    return {"ms": tools.time_ms(fn, device, reps=args["reps"], inner=5),
+    def fn():
+        return plqr.lqt_backward_parallel_sharded(*prob, mesh=mesh,
+                                                  axis="sp")
+    if program == "eager":
+        return fn
+    graph = graphs.Graph(device)
+    with runtime._capturable_linalg():
+        graph.capture(fn)
+    return graph.replay
+
+
+def _rank(rank, device_name: str, args: dict, programs) -> dict:
+    """This rank's ms and collective bytes a call, by program."""
+    device = tools.open_device(device_name)
+    out = {}
+    for program in programs:
+        if args["lqt"]:
+            fn = _lqt(device, args, program)
+        else:
+            fn = diag_mppi_gap.solve(device, "sharded", args["rollouts"],
+                                     args["horizon"], program)
+        mesh_mod.reset_collective_bytes()
+        fn()
+        per_call = sum(mesh_mod.COLLECTIVE_BYTES.values())
+        out[program] = {
+            "ms": tools.time_ms(fn, device, reps=args["reps"], inner=5),
             "collective_bytes_per_call": per_call}
+    return out
 
 
 def run(counts, device: str, args: dict) -> list:
-    """Rank 0's results at each rank count."""
+    """Rank 0's results at each rank count: on NCCL a "graph" and an
+    "eager" row, on gloo an "eager" row."""
     cards = torch.cuda.device_count() if device == "cuda" else 0
     rows = []
     for n in counts:
         backend = "nccl" if 0 < n <= cards else "gloo"
-        rows.append(dict(launch.run_ranks(
-            _rank, n, (device, args), device=device, backend=backend,
-            timeout=args["timeout"])[0], ranks=n, backend=backend))
+        programs = ("graph", "eager") if backend == "nccl" else ("eager",)
+        out = launch.run_ranks(_rank, n, (device, args, programs),
+                               device=device, backend=backend,
+                               timeout=args["timeout"])[0]
+        rows += [dict(out[p], ranks=n, backend=backend, program=p)
+                 for p in programs]
     return rows
 
 
@@ -99,10 +126,12 @@ def main(argv=None) -> list:
     device = tools.open_device(a.device)
     args = vars(a)
     rows = run([int(c) for c in a.ranks.split(",")], device.type, args)
-    t1 = rows[0]["ms"] * rows[0]["ranks"]
+    t1 = {}         # by program: its first row's ms x ranks
     for row in rows:
+        t1.setdefault(row["program"], row["ms"] * row["ranks"])
         row["solves_per_s"] = 1e3 / row["ms"]
-        row["efficiency_vs_linear"] = t1 / (row["ms"] * row["ranks"])
+        row["efficiency_vs_linear"] = t1[row["program"]] / (
+            row["ms"] * row["ranks"])
         print(json.dumps(row), flush=True)
     size = ({"horizon": a.lqt_horizon, "state_dim": a.state_dim} if a.lqt
             else {"n_rollouts": a.rollouts, "horizon": a.horizon})

@@ -23,7 +23,7 @@ import json
 
 import torch
 
-from detex_tpu_torch import tools
+from detex_tpu_torch import graphs, tools
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc import mppi
 from detex_tpu_torch.parallel import mesh as mesh_mod
@@ -32,9 +32,14 @@ VARIANTS = ("unsharded", "sharded")
 
 
 def solve(device: torch.device, variant: str, n_rollouts: int = 8192,
-          horizon: int = 32):
+          horizon: int = 32, program: str = "eager"):
     """A function that runs one MPPI solve of `variant` and returns the
-    new nominal; on a mesh of every rank for "sharded"."""
+    new nominal; on a mesh of every rank for "sharded".  program="graph"
+    (a card; for "sharded" an NCCL mesh): the solve is captured once as a
+    CUDA graph (graphs.Graph) on a static noise buffer, and each call
+    draws the noise into it from the same generator (mppi.draw_noise, as
+    mppi_step draws it) and replays; the result is the graph's output,
+    which the next call overwrites."""
     cfg = mppi.MPPIConfig(n_rollouts=n_rollouts, horizon=horizon,
                           action_dim=8)
     dcfg = D.DynamicsConfig(latent_dim=128, action_dim=8, hidden_dim=512)
@@ -54,12 +59,22 @@ def solve(device: torch.device, variant: str, n_rollouts: int = 8192,
             + 0.1 * torch.sum(u ** 2, dim=-1)
 
     @torch.no_grad()
-    def run():
-        return mppi.mppi_step(nominal, z0, dyn, cost, cfg,
+    def run(eps=None):
+        return mppi.mppi_step(nominal, z0, dyn, cost, cfg, eps=eps,
                               generator=generator,
                               rollout_axis="dp" if mesh else None,
                               mesh=mesh)[0]
-    return run
+    if program == "eager":
+        return run
+    eps = torch.zeros((cfg.n_rollouts, cfg.horizon, cfg.action_dim),
+                      device=device)
+    graph = graphs.Graph(device)
+    graph.capture(lambda: run(eps))
+
+    def replay():
+        mppi.draw_noise(eps, generator, cfg.noise_sigma)
+        return graph.replay()
+    return replay
 
 
 def main(argv=None) -> list:

@@ -169,7 +169,8 @@ def ranks(jparams, tmp_path_factory, straight):
                  metrics=MetricsLogger(io.StringIO()), device="cpu")
         inputs = {"jparams": jparams[1], "batches": batches,
                   "plain_ckpt": plain, "mesh_ckpt": str(root / "mesh")}
-        out[n] = (launch.run_ranks(_rank, n, (inputs,), timeout=_TIMEOUT),
+        out[n] = (launch.run_ranks(_rank, n, (inputs,), device="cpu",
+                                   timeout=_TIMEOUT),
                   inputs)
     return out
 

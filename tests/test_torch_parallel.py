@@ -173,7 +173,7 @@ def _four_ranks(rank):
 @pytest.fixture(scope="module")
 def four():
     return launch.run_ranks(_four_ranks, 4, env={"LOCAL_WORLD_SIZE": "2"},
-                            timeout=_TIMEOUT)
+                            device="cpu", timeout=_TIMEOUT)
 
 
 def test_host_mesh_layout(four):
@@ -250,7 +250,7 @@ def _raises(rank):
 
 def test_run_ranks_reports_a_failed_rank():
     with pytest.raises(RuntimeError, match="fails on purpose"):
-        launch.run_ranks(_raises, 2, timeout=_TIMEOUT)
+        launch.run_ranks(_raises, 2, device="cpu", timeout=_TIMEOUT)
 
 
 def _hangs(rank):
@@ -262,7 +262,19 @@ def _hangs(rank):
 
 def test_run_ranks_kills_a_rank_past_its_time():
     with pytest.raises(RuntimeError, match=r"ranks \[1\] of 2"):
-        launch.run_ranks(_hangs, 2, timeout=10.0)
+        launch.run_ranks(_hangs, 2, device="cpu", timeout=10.0)
+
+
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """Without `device` the ranks go on the cards; where there is none the
+    call raises before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(launch.multiprocessing, "get_context",
+                        lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.run_ranks(_raises, 2, timeout=_TIMEOUT)
+    assert started == []
 
 
 # --- the tools ---------------------------------------------------------------
@@ -288,8 +300,8 @@ def test_bench_scaling_on_the_cpu(lqt, capsys):
               "--action-dim", "2"] if lqt else
              ["--rollouts", "64", "--horizon", "2"])
     rows = bench_scaling.main(args)
-    assert [(r["ranks"], r["backend"]) for r in rows] == [(1, "gloo"),
-                                                         (2, "gloo")]
+    assert [(r["ranks"], r["backend"], r["program"]) for r in rows] == [
+        (1, "gloo", "eager"), (2, "gloo", "eager")]
     assert rows[0]["efficiency_vs_linear"] == 1.0
     if not lqt:
         assert {r["collective_bytes_per_call"] for r in rows} == {

@@ -38,6 +38,7 @@ the `jx` fixture, and the ranks import this module without it.
 
 import dataclasses
 import functools
+import gc
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -326,7 +327,8 @@ def inputs(jx, tmp_path_factory):
 def ranks(inputs):
     """ranks(n): every rank's results at world size n (one spawn each)."""
     return functools.lru_cache(maxsize=None)(
-        lambda n: launch.run_ranks(_rank, n, (inputs,), timeout=_TIMEOUT))
+        lambda n: launch.run_ranks(_rank, n, (inputs,), device="cpu",
+                                   timeout=_TIMEOUT))
 
 
 def _close(got, want, rtol, atol):
@@ -650,6 +652,9 @@ def cuda_world():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
+    # Graphs that hold the group's communicators go before the group.
+    gc.collect()
+    torch.cuda.synchronize()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -678,10 +683,11 @@ def test_cuda_sharded_control_step_one_rank(cuda_world):
             .astype(np.int32)
         np.testing.assert_allclose(sharded.step(words), ctl.step(words),
                                    rtol=0, atol=1e-6)
-    # One launch a step each; the unsharded controller's steps are replays
-    # of its graph, captured after GRAPH_WARMUP eager steps.
-    assert ctl.graphed and not sharded.graphed
-    assert bptc.KERNEL_LAUNCHES == launches + 6 + TR.GRAPH_WARMUP
+    # One launch a step each; both controllers' steps are replays of their
+    # graphs (the sharded one's holds its NCCL collectives), each captured
+    # after GRAPH_WARMUP eager steps.
+    assert ctl.graphed and sharded.graphed
+    assert bptc.KERNEL_LAUNCHES == launches + 6 + 2 * TR.GRAPH_WARMUP
     words = torch.as_tensor(words, device=cuda_world)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
