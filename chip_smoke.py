@@ -21,7 +21,8 @@ all at once) and drives the port's three paths:
     dynamics toward a random goal; a PipelinedController held to a Controller one step later;
     "graphed control step": 5 steps of graphed Controllers (MPPI, iLQR
     sequential and parallel LQT, 2 iterations; iLQR on damped dynamics)
-    against the eager control_step on the same noise, the generators'
+    against the eager control_step on the same noise (the parallel LQT
+    bit-equal: its LU on cuSOLVER/cuBLAS both ways), the generators'
     states, a graphed PipelinedController one step behind, a replay under
     sync debug mode "error", BC7 launches per replay, the capture's wall
     time, the graphed and the eager step's period and host enqueue
@@ -46,9 +47,9 @@ all at once) and drives the port's three paths:
     fresh NCCL world of one: 5 full-width steps each of graphed sharded
     Controllers (MPPI, iLQR sequential and parallel LQT on damped
     dynamics), each replay holding the step's NCCL collectives, against
-    the eager sharded step on the same noise, bit-equal (the LQT's eager
-    step on the capture's LU library; its distance from the step on
-    torch's default LU routing printed), and the unsharded graphed
+    the eager sharded step on the same noise, bit-equal (the LQT's LU on
+    cuSOLVER/cuBLAS eager and captured, parallel_lqr._lu_library; torch's
+    LU setting read the same before and after), and the unsharded graphed
     Controller (atol 1e-6), BC7
     launches and collective bytes a replay against the eager step's,
     capture s and peak memory, a graphed sharded PipelinedController one
@@ -87,6 +88,10 @@ all at once) and drives the port's three paths:
     dtx-convert -d on a whole mip chain, which captures nothing; a BC6H
     pipeline and a conversion replayed under sync debug mode "error"; the
     1024^2 ETC2_EAC pipeline's graphed and eager period and host enqueue;
+    "conversion sweep": every one of the 449 format pairs with a
+    conversion path (tools.convert_sweep: NaN, inf, denormal and signed-
+    zero lanes, two HDR settings) on the card, bit-equal to the host
+    converter;
   * the tools (detex_tpu_torch/tools/): the BC7 pre-gathered-partition,
     lane-interleave and ALU mix-probe kernels held bit-exact against their
     plain versions at the tools' 65,536 blocks (bc7_pre also against the
@@ -111,8 +116,8 @@ all at once) and drives the port's three paths:
     blocks per family; and the three benches at their defaults:
     bench_pipelines (a 1024^2 ETC2_EAC texture to RGBA8 through
     engine._device_pipeline, graphed and eager, byte-equal to the native
-    decode; BC6H to the latent encoder, batch 64, equal to the plain BC6H
-    version's),
+    decode; BC6H to the latent encoder, batch 64, graphed and eager, equal
+    to the plain BC6H version's and the graph's to the eager step's),
     bench_control_step --ilqr 0 2 --wallclock (each row's first action
     within 1e-6 of a fresh Controller's) and bench_train_step (graph and
     eager rows, each first loss within rtol 1e-5 of dynamics.train_step's);
@@ -177,6 +182,7 @@ from detex_tpu_torch.texture import Texture
 from detex_tpu_torch.tools import bench_control_step as BCS
 from detex_tpu_torch.tools import bench_pipelines as BPL
 from detex_tpu_torch.tools import bench_train_step as BTS
+from detex_tpu_torch.tools import convert_sweep as CSW
 from detex_tpu_torch.tools import interleave_probe as IP
 from detex_tpu_torch.tools import mass_fuzz
 from detex_tpu_torch.tools import mxu_probe as MP
@@ -943,10 +949,11 @@ def _pipelined_path(rng, smi: str) -> int:
 
 _GRAPH_STEPS = 5
 # (label, iLQR iterations, parallel LQT, action atol): MPPI replays the
-# eager step's own kernels; iLQR is held at test_cuda_ilqr_step_matches_cpu's
-# atol 1e-5 (its batched LU runs on cuBLAS in the graph, on MAGMA eagerly).
+# eager step's own kernels; sequential iLQR is held at
+# test_cuda_ilqr_step_matches_cpu's atol 1e-5; the parallel LQT bit-equal,
+# its LU on cuSOLVER/cuBLAS eager and captured (parallel_lqr._lu_library).
 _GRAPH_CASES = (("MPPI", 0, False, 1e-6), ("iLQR sequential", 2, False, 1e-5),
-                ("iLQR parallel LQT", 2, True, 1e-5))
+                ("iLQR parallel LQT", 2, True, 0.0))
 
 
 def _eager_serve(params, goal, cfg, requests, mesh=None) -> tuple:
@@ -1000,6 +1007,7 @@ def _graphed_path(smi: str) -> int:
     requests = _requests(rng, _GRAPH_STEPS, dcfg)
     bptc.KERNEL_LAUNCHES = 0
     mppi_actions = None
+    library = torch.backends.cuda.preferred_linalg_library()
     for label, n_ilqr, parallel, atol in _GRAPH_CASES:
         cfg = dataclasses.replace(base, n_ilqr_iterations=n_ilqr,
                                   ilqr_parallel=parallel)
@@ -1032,6 +1040,10 @@ def _graphed_path(smi: str) -> int:
                                  f"{rel:.3g} (rtol 1e-5)")
         if not torch.equal(ctl.generator.get_state(), gen.get_state()):
             raise AssertionError(f"graphed {label}: generator state differs")
+        left = torch.backends.cuda.preferred_linalg_library()
+        if left != library:
+            raise AssertionError(f"graphed {label}: torch's LU setting left "
+                                 f"as {left}, not {library}")
         refined = sum(d.get("ilqr_cost", np.inf) < d["min_cost"]
                       for _, d in got)
         if n_ilqr and not refined:
@@ -1045,7 +1057,8 @@ def _graphed_path(smi: str) -> int:
               f"{bit}; diagnostics within rtol 1e-5 (max {rel:.3g}); "
               + (f"{refined} steps refined below MPPI's best cost; "
                  if n_ilqr else "") +
-              f"generator state equal to the eager one's; BC7 launches "
+              f"generator state equal to the eager one's; torch's LU "
+              f"setting {library} before and after; BC7 launches "
               f"{launches} ({R.GRAPH_WARMUP} warm-ups, "
               f"{prog.launches_per_replay} a replay); capture "
               f"{prog.capture_s:.3f} s (warm-ups included); peak device "
@@ -1664,14 +1677,13 @@ def _md_graph_case(params, goal, cfg, requests, mesh, label: str,
                    smi: str) -> int:
     """A graphed sharded Controller on `mesh` over `requests`, held to the
     eager sharded control_step on the same noise, bit-equal: the graph
-    replays the eager step's kernels and collectives.  With the parallel
-    LQT the eager step runs under runtime._capturable_linalg, as the
-    capture does (torch routes its batched LU to MAGMA by default, which
-    no capture can hold); its distance from the default-routed eager step
-    is printed.  Also held to the unsharded graphed Controller (atol
-    1e-6), with its BC7 launches and collective bytes a replay against the
-    eager step's.  Returns the graphed sharded Controller's BC7
-    launches."""
+    replays the eager step's kernels and collectives, and the parallel
+    LQT's LU runs on cuSOLVER/cuBLAS in both (parallel_lqr._lu_library),
+    with torch's LU setting as it was before the steps.  Also held to the
+    unsharded graphed Controller (atol 1e-6), with its BC7 launches and
+    collective bytes a replay against the eager step's.  Returns the
+    graphed sharded Controller's BC7 launches."""
+    library = torch.backends.cuda.preferred_linalg_library()
     launches = bptc.KERNEL_LAUNCHES
     PM.reset_collective_bytes()
     ctl = R.Controller(params, goal, cfg, seed=_SEED, device="cuda",
@@ -1681,11 +1693,8 @@ def _md_graph_case(params, goal, cfg, requests, mesh, label: str,
     graph_bytes = _md_bytes()
     prog = ctl._program
     PM.reset_collective_bytes()
-    linalg = (R._capturable_linalg() if cfg.ilqr_parallel
-              else contextlib.nullcontext())
-    with linalg:
-        (want, _, gen), eager_mib = _peak_mib(
-            lambda: _eager_serve(params, goal, cfg, requests, mesh))
+    (want, _, gen), eager_mib = _peak_mib(
+        lambda: _eager_serve(params, goal, cfg, requests, mesh))
     eager_step = {k: v // len(requests) for k, v in _md_bytes().items()}
     per_replay = {f"{op}/{axis}": v for (op, axis), v in
                   prog._graph.collective_bytes.items()}
@@ -1702,12 +1711,10 @@ def _md_graph_case(params, goal, cfg, requests, mesh, label: str,
     if not all(np.array_equal(a, w) for a, w in zip(got, want)):
         raise AssertionError(f"graphed sharded {label}: actions differ from "
                              f"the eager sharded step's by {diffs}")
-    routed = ""
-    if cfg.ilqr_parallel:
-        default, _, _ = _eager_serve(params, goal, cfg, requests, mesh)
-        routed = [float(np.abs(a - w).max()) for a, w in zip(got, default)]
-        routed = (f"; against the eager step on torch's default LU routing "
-                  f"(MAGMA): max |action diff| per step {routed}")
+    left = torch.backends.cuda.preferred_linalg_library()
+    if left != library:
+        raise AssertionError(f"graphed sharded {label}: torch's LU setting "
+                             f"left as {left}, not {library}")
     if not torch.equal(ctl.generator.get_state(), gen.get_state()):
         raise AssertionError(f"graphed sharded {label}: generator state")
     plain = R.Controller(params, goal, dataclasses.replace(
@@ -1721,9 +1728,9 @@ def _md_graph_case(params, goal, cfg, requests, mesh, label: str,
     print(f"graphed multi-device, {label}: {len(requests)} full-width steps "
           f"of a Controller sharded over 'dp' at 1 NCCL rank, each a graph "
           f"replay, against the eager sharded control_step on the same "
-          f"noise" + (" and LU library" if cfg.ilqr_parallel else "") +
-          f": bit-equal (max |action diff| per step {diffs}){routed}; "
-          f"generator state equal; against the unsharded "
+          f"noise: bit-equal (max |action diff| per step {diffs}); torch's "
+          f"LU setting {library} before and after; generator state equal; "
+          f"against the unsharded "
           f"graphed Controller: max diff {udiff:.3g} (atol 1e-6), bit-equal "
           f"{ubit}; BC7 launches {launches} ({R.GRAPH_WARMUP} warm-ups, "
           f"{prog.launches_per_replay} a replay); collective bytes a replay "
@@ -2555,6 +2562,27 @@ def _graphed_texture_path(blocks: dict, smi: str) -> dict:
     return launches
 
 
+def _conversion_sweep(smi: str) -> None:
+    """tools.convert_sweep on the card: every pair of formats the host
+    converter allows (449), each source's buffer with NaN, +-inf, denormal
+    and signed-zero lanes (0 and the limits in integer lanes) and 257
+    random pixels, under the default HDR parameters and gamma 2.2 on
+    [0, 4], through convert_pixels_torch (each key's first, eager call),
+    bit-equal to the port's host converter."""
+    graphs._PROGRAMS.clear()
+    t0 = time.perf_counter()
+    out = CSW.sweep("cuda")
+    wall = time.perf_counter() - t0
+    graphs._PROGRAMS.clear()
+    print(f"conversion sweep: {out['pairs']} pairs checked ({out['runs']} "
+          f"conversions: {len(CSW.HDR_SETTINGS)} HDR settings) on the card "
+          f"against the host converter, {len(out['differing'])} differing"
+          f"{' ' + json.dumps(out['differing']) if out['differing'] else ''}"
+          f", in {wall:.2f} s on {smi}")
+    if out["differing"] or out["pairs"] != len(CSW.pairs()):
+        raise AssertionError(f"conversion sweep: {out}")
+
+
 def _cli_path(blocks: dict) -> None:
     """dtx-convert -d (the device backend) on a 4096^2 BC3, ETC2_EAC,
     EAC_RG11 and BPTC_FLOAT .ktx written with save_ktx, each against the
@@ -3337,8 +3365,8 @@ def _bench_control_path(smi: str) -> int:
     """tools.bench_control_step --ilqr 0 2 --wallclock at ControllerConfig()'s
     width, graph and eager rows; each row's first action is held (inside
     the bench) to a fresh graphed Controller's on the same seed and
-    observation (atol 1e-6; 1e-5 for the eager parallel-LQT row).  Returns
-    the BC7 launches."""
+    observation (atol 1e-6, the eager parallel-LQT row too).  Returns the
+    BC7 launches."""
     bptc.KERNEL_LAUNCHES = 0
     with contextlib.redirect_stdout(io.StringIO()):
         rows = BCS.main(["--ilqr", "0", "2", "--wallclock"])
@@ -3365,8 +3393,7 @@ def _bench_control_path(smi: str) -> int:
               f"{'pipelined' if r['pipelined'] else 'sync'} "
               f"{r['program']} {r['ms_per_step']:.3f} ms" for r in rows
               if r["metric"] == "control_step_wallclock_ms")
-          + f"; first actions within their atol ({BCS.ATOL}; "
-          f"{BCS.ATOL_LU_ROUTED} for eager parallel LQT) of a graphed "
+          + f"; first actions within atol {BCS.ATOL} of a graphed "
           f"Controller's (max diffs "
           f"{[r['first_action_max_diff'] for r in steps]}); BC7 "
           f"launches {launches} on {smi}")
@@ -3402,29 +3429,41 @@ def _bench_train_path(smi: str) -> int:
 
 def _bench_pipelines_path(smi: str) -> dict:
     """tools.bench_pipelines etc bc6h: config 2's image, in a "graph" and
-    an "eager" row, byte-equal (inside the bench) to the native decode,
-    config 4's images and latents equal to the plain BC6H version's.
-    Returns the launch counts."""
+    an "eager" row, byte-equal (inside the bench) to the native decode;
+    config 4 in a "graph" row (its three bodies captured, one replay and
+    one BC6H launch a step) and an "eager" row, images and latents equal
+    to the plain BC6H version's, the graph's first images bit-equal to the
+    eager step's and its latents within LATENT_RTOL of them.  Returns the
+    launch counts."""
     _reset_all_counts()
     with contextlib.redirect_stdout(io.StringIO()):
         rows = BPL.main([])
     launches = _all_counts()
     _bench_rows("bench pipelines", rows)
-    etc_rows, bc6h_row = rows[:2], rows[2]
+    etc_rows, bc6h_rows = rows[:2], rows[2:]
     if [r["program"] for r in etc_rows] != ["graph", "eager"] or \
+            [r["program"] for r in bc6h_rows] != ["graph", "eager"] or \
             any(r["etc2_eac_launches_per_step"] != 1.0 for r in etc_rows) \
-            or bc6h_row["bc6h_launches_per_step"] != 1.0:
+            or any(r["bc6h_launches_per_step"] != 1.0 for r in bc6h_rows):
         raise AssertionError("bench pipelines: a step did not launch its "
                              "kernel once")
     print("bench pipelines: ETC2_EAC 1024^2 -> RGBA8 " + ", ".join(
         f"{r['program']} {r['ms_per_1024sq_texture']:.4f} ms "
         f"({r['value']:.4g} blocks/s, host {r['host_ms_per_step']:.4f})"
-        for r in etc_rows) + f", byte-equal to native; BC6H "
-          f"-> latent batch 64 {bc6h_row['ms_per_batch64']:.3f} ms, decode "
-          f"+ unpack {bc6h_row['decode_unpack_standalone_ms']:.4f}, kernel "
-          f"{bc6h_row['decode_kernel_only_ms']:.4f}; latents equal to the "
-          f"plain version's (max diff "
-          f"{bc6h_row['latent_max_diff_vs_plain']:.3g}) on {smi}")
+        for r in etc_rows) + ", byte-equal to native; BC6H -> latent batch "
+          "64 " + "; ".join(
+              f"{r['program']} {r['ms_per_batch64']:.4f} ms (p10 "
+              f"{r['p10_ms']:.4f}, p90 {r['p90_ms']:.4f}; host "
+              f"{r['host_ms_per_step']:.4f}), decode + unpack "
+              f"{r['decode_unpack_standalone_ms']:.4f}, kernel "
+              f"{r['decode_kernel_only_ms']:.4f}, BC6H launches "
+              f"{r['bc6h_launches_per_step']} a step" for r in bc6h_rows)
+          + f"; graph capture {bc6h_rows[0]['capture_s']:.3f} s; latents "
+          f"equal to the plain version's (max diff "
+          f"{bc6h_rows[1]['latent_max_diff_vs_plain']:.3g}); the graph's "
+          f"first images bit-equal to the eager step's, latents max diff "
+          f"{bc6h_rows[0]['latent_max_diff_vs_eager']:.3g} (rtol "
+          f"{BPL.LATENT_RTOL} of the largest) on {smi}")
     return launches
 
 
@@ -3470,6 +3509,7 @@ def main() -> None:
     graphed = _phase("graphed texture pipelines", _graphed_texture_path,
                      tex_blocks, smi)
     bc7_paths["graphed texture pipelines"] = graphed.pop("bptc")
+    _phase("conversion sweep", _conversion_sweep, smi)
     for k in texture_kernels:
         k["launches_by_path"] = {
             "texture path": k["launches"],

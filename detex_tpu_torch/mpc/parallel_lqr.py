@@ -28,12 +28,20 @@ agree to float rounding, not bit for bit.  The inverses and solves use
 the `_ex` forms, which do not read an error flag back to the host (a
 singular system gives non-finite values, as in the JAX package).
 
+On a card every solve and inverse runs on cuSOLVER/cuBLAS (_lu_library),
+eager or captured: torch's default routes a batched LU of more than 16
+matrices of 128 x 128 to MAGMA, which synchronises the host (so no CUDA
+graph can hold it) and rounds otherwise, so an eager step would part from
+its graph.  One library gives one result, however the step runs.
+
 lqt_backward_parallel_sharded splits the horizon over the ranks of a mesh
 axis: a local suffix scan per rank, one all_gather of the chunk totals,
 and one combine with the later chunks' suffix.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -46,12 +54,31 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
+@contextlib.contextmanager
+def _lu_library(a: torch.Tensor):
+    """Route torch's LU to cuSOLVER/cuBLAS while the block runs, for a CUDA
+    tensor `a`; the setting is process-global, so the one found is put
+    back on exit, on error too.  A CPU tensor leaves the setting alone (a
+    torch built without CUDA refuses "cusolver")."""
+    if a.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.solve_ex(a, b)[0]
+    with _lu_library(a):
+        return torch.linalg.solve_ex(a, b)[0]
 
 
 def _inv(a: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.inv_ex(a)[0]
+    with _lu_library(a):
+        return torch.linalg.inv_ex(a)[0]
 
 
 def _combine(e1: Elements, e2: Elements) -> Elements:

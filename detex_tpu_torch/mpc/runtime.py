@@ -23,7 +23,6 @@ parameters gathered whole on every rank.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -180,21 +179,6 @@ def unpack_step(packed: torch.Tensor, names: tuple, action_dim: int):
                                          packed[action_dim:].unbind()))
 
 
-@contextlib.contextmanager
-def _capturable_linalg():
-    """torch routes a batched LU of more than 16 matrices of 128 x 128 (the
-    parallel LQT's solves) to MAGMA, which synchronises the host with the
-    stream; nothing may synchronise while a stream is captured.  cuSOLVER's
-    and cuBLAS's routines do not.  The setting is process-global, so it
-    holds only around the warm-ups and the capture and is restored after."""
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
-
-
 class _StepGraph:
     """control_step as one captured CUDA graph on a card: the counterpart of
     jax.jit(partial(control_step, mesh=mesh), donate_argnums=(1,)) at
@@ -245,8 +229,7 @@ class _StepGraph:
         if self._graph.graph is not None:
             return
         self._saved = self.nominal.clone()
-        with _capturable_linalg():
-            self._graph.capture(self._body, self._restore)
+        self._graph.capture(self._body, self._restore)
         self._saved = None
         self._packed, self._names = self._graph.out
 

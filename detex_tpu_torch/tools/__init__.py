@@ -13,6 +13,7 @@ and of its benches and checks, which run the package's own paths:
     python -m detex_tpu_torch.tools.bench_scaling
     python -m detex_tpu_torch.tools.diag_mppi_gap
     python -m detex_tpu_torch.tools.mass_fuzz
+    python -m detex_tpu_torch.tools.convert_sweep
 
 They run on the card unless given `--device cpu`, which runs the kernels'
 plain versions.  The TPU tools' timing workarounds (the two-point

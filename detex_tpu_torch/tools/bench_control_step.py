@@ -28,9 +28,8 @@ from the host (tools/bench_control_step.py:84-107).
 
 Each row checks itself: the first step's action against a fresh Controller
 (graphed on a card) on the same seed and observation (atol 1e-6: the same
-ops on the same device; 1e-5 for an eager parallel-LQT row on a card,
-whose batched LU torch routes to other libraries than the graph's), and
---wallclock's pipelined actions against the synchronous ones one step
+ops on the same device, the parallel LQT's LU on one library eager or
+graphed, mpc/parallel_lqr._lu_library), and --wallclock's pipelined actions against the synchronous ones one step
 later.  Prints one JSON line per row.
 """
 
@@ -51,11 +50,6 @@ from detex_tpu_torch.ops import bptc
 
 BUDGET_MS = 10.0
 ATOL = 1e-6          # same ops, same device: only a reduction order may move
-# An eager parallel-LQT step runs its batched LU where torch routes it by
-# default (MAGMA or cuBLAS, by batch), the Controller's graph on cuBLAS
-# (runtime._capturable_linalg): those two are held at
-# test_cuda_ilqr_step_matches_cpu's atol.
-ATOL_LU_ROUTED = 1e-5
 WALLCLOCK_STEPS, WALLCLOCK_WARMUP = 100, 4
 _SEED = 0
 
@@ -118,17 +112,14 @@ def bench(cfg: R.ControllerConfig, device: torch.device, warmup: int,
     ctl = R.Controller(params, goal, cfg, seed=_SEED, device=device,
                        mesh=mesh)
     want = ctl.step(obs)
-    atol = ATOL_LU_ROUTED if (program == "eager" and ctl.graphed
-                              and cfg.n_ilqr_iterations
-                              and cfg.ilqr_parallel) else ATOL
     diff = float(np.abs(first - want).max())
-    if not np.isfinite(first).all() or not diff <= atol:
+    if not np.isfinite(first).all() or not diff <= ATOL:
         raise AssertionError(f"first action {first} != a Controller's "
-                             f"{want} (max diff {diff:.3g} > {atol})")
+                             f"{want} (max diff {diff:.3g} > {ATOL})")
     return {"card_ms": card_ms, "host_ms": host_ms,
             "bc7_launches_per_step": launches / (warmup + steps),
             "capture_s": capture_s, "first_action": first,
-            "first_action_max_diff": diff, "first_action_atol": atol}
+            "first_action_max_diff": diff, "first_action_atol": ATOL}
 
 
 def bench_wallclock(cfg: R.ControllerConfig, device: torch.device,

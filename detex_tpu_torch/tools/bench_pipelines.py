@@ -18,7 +18,14 @@ bc6h (config 4): BC6H HDR blocks (csrc/bc6h.cu) -> FLOAT_RGB16 -> float32
      (convert_device.f16_bits_to_f32_bits) -> dynamics.encode at
      DynamicsConfig(image_size=64, channels=3), batch 64; beside it the
      decode and unpack alone (decode_unpack_standalone_ms) and the kernel
-     alone (decode_kernel_only_ms).
+     alone (decode_kernel_only_ms): the JAX tool's run_fn,
+     run_decode_only and run_kernel_only.  Rows as for etc: "graph" (on
+     a card; each of the three bodies captured as one CUDA graph,
+     graphs.Graph, before the timing; the step index lives on the card
+     as an int32 that each replay xors into the words and then advances,
+     its last op, so that a step is one replay, as the JAX tool's w ^ i
+     lies inside its program) and "eager" (the bodies launched op by
+     op, words ^ i on the host's i; the CPU has only this one).
 
 Times come from tools.step_times (CUDA events between steps, --steps
 steps after --warmup, nothing waiting for the card in between); a row's
@@ -27,7 +34,9 @@ ms is the median, with p10, p90 and the host's enqueue median beside it.
 Each row checks itself: the ETC2_EAC image of the first step byte-equal to
 engine.decompress_texture_linear(tex, RGBA8, backend="native"), and the
 BC6H step's images and latents equal to the same step with the plain BC6H
-version swapped in.  Prints one JSON line per config.
+version swapped in; the BC6H graph row's first images also bit-equal to
+the eager step's and its latents within LATENT_RTOL of them.  Prints one
+JSON line per row.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import numpy as np
 import torch
 
 from detex_tpu_torch import convert_device as CD
-from detex_tpu_torch import engine, tools
+from detex_tpu_torch import engine, graphs, tools
 from detex_tpu_torch import formats as F
 from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.ops import bptc_float, etc
@@ -128,8 +137,43 @@ def decode_to_img(words: torch.Tensor, batch: int,
         .reshape(batch, image_size, image_size, 3)
 
 
-def bench_bc6h_encoder(device: torch.device, args) -> dict:
-    """Config 4: BC6H -> FLOAT_RGB16 -> float32 -> latent encoder."""
+def _latent_diff(z: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max |z - want|; raises unless z is finite and within LATENT_RTOL of
+    the largest latent of `want` (at least 1)."""
+    scale = max(1.0, float(want.abs().max()))
+    diff = float((z - want).abs().max())
+    if not torch.isfinite(z).all() or not diff <= LATENT_RTOL * scale:
+        raise AssertionError(f"BC6H latents differ from {what} by "
+                             f"{diff:.3g} (largest {scale:.3g})")
+    return diff
+
+
+def _graphed(fn, words: torch.Tensor) -> tuple:
+    """fn(words ^ i) as one captured CUDA graph: i is an int32 on the card
+    that each replay xors into the words and then advances, its last op,
+    so that replay k runs fn(words ^ k), as the JAX tool's fori_loop body
+    runs step(w ^ i).  The warm-ups' advances are undone before the
+    capture.  Returns (the graph, i).  The graph holds i's address, not
+    the tensor: the caller keeps i as long as it replays, or the allocator
+    hands its memory to another tensor."""
+    i_dev = torch.zeros((), dtype=torch.int32, device=words.device)
+
+    @torch.no_grad()
+    def body():
+        out = fn(words ^ i_dev)
+        i_dev.add_(1)
+        return out
+    graph = graphs.Graph(words.device)
+    graph.capture(body, i_dev.zero_)
+    return graph, i_dev
+
+
+def bench_bc6h_encoder(device: torch.device, args,
+                       program: str = "eager") -> dict:
+    """Config 4: BC6H -> FLOAT_RGB16 -> float32 -> latent encoder, in
+    `program`: "graph", the full step, the decode and unpack, and the
+    kernel each one replay of its captured CUDA graph (captured before the
+    timing), or "eager", the same bodies launched op by op."""
     batch, size = args.batch, args.image_size
     dcfg = D.DynamicsConfig(image_size=size, channels=3)
     generator = torch.Generator(device=device)
@@ -139,24 +183,56 @@ def bench_bc6h_encoder(device: torch.device, args) -> dict:
     words = torch.from_numpy(np.random.default_rng(2).integers(
         -2**31, 2**31, (batch * n_blocks, 4), np.int64).astype(np.int32)) \
         .to(device)
-    acc = {"z": torch.zeros((), device=device)}
 
-    @torch.no_grad()
-    def full(i):
-        z = D.encode(params, decode_to_img(words ^ i, batch, size), dcfg)
-        acc["z"] = acc["z"] + z[0, 0]
+    def encoded(w):
+        img = decode_to_img(w, batch, size)
+        return img, D.encode(params, img, dcfg)
 
-    def unpack(i):
-        acc["img"] = decode_to_img(words ^ i, batch, size)
+    def unpacked(w):
+        return decode_to_img(w, batch, size)
 
-    def kernel(i):
-        acc["pix"] = bptc_float.decode_bptc_float(words ^ i)
+    capture_s, carry, programs = None, {}, {}
+    if program == "graph":
+        programs = {"full": _graphed(encoded, words),
+                    "unpack": _graphed(unpacked, words),
+                    "kernel": _graphed(bptc_float.decode_bptc_float, words)}
+        capture_s = programs["full"][0].capture_s
+
+        def full(i):
+            out = programs["full"][0].replay()
+            if i == 0:
+                # A graph's output is overwritten by the next replay's.
+                carry["first"] = tuple(t.clone() for t in out)
+
+        def unpack(i):
+            programs["unpack"][0].replay()
+
+        def kernel(i):
+            programs["kernel"][0].replay()
+    else:
+        acc = {"z": torch.zeros((), device=device)}
+
+        @torch.no_grad()
+        def full(i):
+            _, z = encoded(words ^ i)
+            acc["z"] = acc["z"] + z[0, 0]
+
+        def unpack(i):
+            acc["img"] = unpacked(words ^ i)
+
+        def kernel(i):
+            acc["pix"] = bptc_float.decode_bptc_float(words ^ i)
 
     launches = bptc_float.KERNEL_LAUNCHES["bptc_float"]
     t = _timed(full, device, args)
     launches = bptc_float.KERNEL_LAUNCHES["bptc_float"] - launches
     t_dec = _timed(unpack, device, args)
     t_k = _timed(kernel, device, args)
+    for name, (_, i_dev) in programs.items():
+        if int(i_dev) != args.warmup + args.steps:
+            raise AssertionError(f"the {name} graph's step index reads "
+                                 f"{int(i_dev)} after "
+                                 f"{args.warmup + args.steps} replays")
 
     # The full step with the plain BC6H version swapped in.
     out = []
@@ -173,23 +249,29 @@ def bench_bc6h_encoder(device: torch.device, args) -> dict:
     if not torch.equal(img_k, img_p):
         raise AssertionError("BC6H images differ between the kernel and "
                              "the plain version")
-    scale = max(1.0, float(z_p.abs().max()))
-    diff = float((z_k - z_p).abs().max())
-    if not torch.isfinite(z_k).all() or not diff <= LATENT_RTOL * scale:
-        raise AssertionError(f"BC6H latents differ by {diff:.3g} "
-                             f"(largest {scale:.3g})")
-    return {"metric": "bc6h_hdr_to_latent_images_per_s",
-            "program": "eager",
-            "value": batch / t["ms"] * 1e3, "unit": "images/s",
-            "ms_per_batch64": t["ms"], "batch": batch,
-            "image_size": size, "p10_ms": t["p10_ms"],
-            "p90_ms": t["p90_ms"], "host_ms_per_step": t["host_ms"],
-            "decode_kernel_only_ms": t_k["ms"],
-            "decode_kernel_share_pct": 100 * t_k["ms"] / t["ms"],
-            "decode_unpack_standalone_ms": t_dec["ms"],
-            "blocks_per_s": batch * n_blocks / t["ms"] * 1e3,
-            "bc6h_launches_per_step": launches / (args.warmup + args.steps),
-            "latent_max_diff_vs_plain": diff}
+    diff = _latent_diff(z_k, z_p, "the plain version's")
+    row = {"metric": "bc6h_hdr_to_latent_images_per_s",
+           "program": program,
+           "value": batch / t["ms"] * 1e3, "unit": "images/s",
+           "ms_per_batch64": t["ms"], "batch": batch,
+           "image_size": size, "p10_ms": t["p10_ms"],
+           "p90_ms": t["p90_ms"], "host_ms_per_step": t["host_ms"],
+           "decode_kernel_only_ms": t_k["ms"],
+           "decode_kernel_share_pct": 100 * t_k["ms"] / t["ms"],
+           "decode_unpack_standalone_ms": t_dec["ms"],
+           "blocks_per_s": batch * n_blocks / t["ms"] * 1e3,
+           "bc6h_launches_per_step": launches / (args.warmup + args.steps),
+           "capture_s": capture_s,
+           "latent_max_diff_vs_plain": diff}
+    if program == "graph":
+        # The graph's first step (words ^ 0) against the eager step's.
+        img_g, z_g = carry["first"]
+        if not torch.equal(img_g, img_k):
+            raise AssertionError("BC6H images differ between the graph and "
+                                 "the eager step")
+        row["latent_max_diff_vs_eager"] = _latent_diff(z_g, z_k,
+                                                       "the eager step's")
+    return row
 
 
 def main(argv=None) -> list:
@@ -213,7 +295,8 @@ def main(argv=None) -> list:
         runs += [lambda p=p: bench_etc_pipeline(device, args, p)
                  for p in programs]
     if "bc6h" in args.which:
-        runs.append(lambda: bench_bc6h_encoder(device, args))
+        runs += [lambda p=p: bench_bc6h_encoder(device, args, p)
+                 for p in programs]
     rows = []
     for run in runs:
         row = dict(run(), warmup=args.warmup, steps=args.steps,

@@ -19,8 +19,8 @@ the overhead of partitioning (efficiency 1.0 means the sharded program
 wastes nothing against the unsharded one on equal silicon), with gloo's
 host copies in it.  NCCL rows are timed twice, with a "program" key as
 the other benches have: "graph", the step captured as one CUDA graph with
-its collectives (graphs.Graph; the MPPI noise drawn outside it, the LQT's
-LU on cuSOLVER/cuBLAS, runtime._capturable_linalg), and "eager"; gloo
+its collectives (graphs.Graph; the MPPI noise drawn outside it), and
+"eager", the LQT's LU on cuSOLVER/cuBLAS in both (parallel_lqr); gloo
 rows, which a capture cannot hold, are "eager" only.  Prints one JSON line
 per row, then a summary.
 """
@@ -35,7 +35,6 @@ import torch
 
 from detex_tpu_torch import graphs, tools
 from detex_tpu_torch.mpc import parallel_lqr as plqr
-from detex_tpu_torch.mpc import runtime
 from detex_tpu_torch.parallel import launch
 from detex_tpu_torch.parallel import mesh as mesh_mod
 from detex_tpu_torch.tools import diag_mppi_gap
@@ -68,8 +67,7 @@ def _lqt(device, args: dict, program: str):
     if program == "eager":
         return fn
     graph = graphs.Graph(device)
-    with runtime._capturable_linalg():
-        graph.capture(fn)
+    graph.capture(fn)
     return graph.replay
 
 

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from detex_tpu_torch import tools
+from detex_tpu_torch import graphs, tools
 from detex_tpu_torch.mpc import runtime as R
+from detex_tpu_torch.ops import bptc_float as BF
 from detex_tpu_torch.ops import etc
 from detex_tpu_torch.tools import bench_control_step as BC
 from detex_tpu_torch.tools import bench_pipelines as BP
@@ -139,6 +140,86 @@ def test_bench_pipelines_check_bites(monkeypatch):
     monkeypatch.setattr(etc, "decode_etc2_eac", wrong)
     with pytest.raises(AssertionError, match="native"):
         BP.main(["--device", "cpu", *_PIPELINES, "etc"])
+
+
+class _EagerGraph:
+    """graphs.Graph on the CPU for the bench's graph rows: capture() runs
+    the warm-ups and the reset as Graph.capture does and keeps the body;
+    each replay runs the body again, as a replay reruns the captured
+    ops."""
+
+    def __init__(self, device):
+        self.graph, self.out, self.capture_s = None, None, None
+
+    def capture(self, body, reset=None):
+        for _ in range(graphs.GRAPH_WARMUP):
+            body()
+        if reset is not None:
+            reset()
+        self.graph, self.capture_s = body, 0.0
+
+    def replay(self):
+        self.out = self.graph()
+        return self.out
+
+
+def _bc6h_args():
+    return BP.argparse.Namespace(batch=2, image_size=16, warmup=1, steps=3)
+
+
+def test_bench_bc6h_graph_row_steps_through_words_xor_i(monkeypatch):
+    """The graph row's bodies xor the step index held on the device into
+    the words and advance it as their last op: replay k decodes words ^ k
+    after the warm-ups' advances are undone, its first images equal the
+    eager step's and its latents are within LATENT_RTOL (here 0)."""
+    monkeypatch.setattr(BP.graphs, "Graph", _EagerGraph)
+    decode, seen = BF.decode_bptc_float, []
+
+    def spy(words, *a, **k):
+        seen.append(int(words[0, 0]))
+        return decode(words, *a, **k)
+    monkeypatch.setattr(BF, "decode_bptc_float", spy)
+    row = BP.bench_bc6h_encoder(torch.device("cpu"), _bc6h_args(), "graph")
+    assert row["program"] == "graph" and row["capture_s"] == 0.0
+    assert row["latent_max_diff_vs_eager"] == 0.0
+    assert row["latent_max_diff_vs_plain"] == 0.0
+    assert {"ms_per_batch64", "decode_kernel_only_ms",
+            "decode_unpack_standalone_ms", "decode_kernel_share_pct",
+            "bc6h_launches_per_step"} <= set(row)
+    w0 = seen[0]
+    # The three captures' warm-ups (i = 0, 1), then each graph's replays
+    # over the warm-up and timed steps (i = 0 .. 3), then the check's
+    # eager decode of the words.
+    assert seen == [w0 ^ i for i in range(graphs.GRAPH_WARMUP)] * 3 \
+        + [w0 ^ i for i in range(1 + 3)] * 3 + [w0]
+
+
+def test_graphed_returns_the_step_index_it_advances(monkeypatch):
+    """_graphed returns the step index the captured body reads and
+    advances (the caller keeps it alive while it replays: a graph holds
+    its address, not the tensor): 0 after the capture, k after k
+    replays, and replay k ran fn(words ^ k)."""
+    monkeypatch.setattr(BP.graphs, "Graph", _EagerGraph)
+    words = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    graph, i_dev = BP._graphed(lambda w: w.clone(), words)
+    assert int(i_dev) == 0
+    for k in range(3):
+        assert torch.equal(graph.replay(), words ^ k)
+    assert int(i_dev) == 3
+
+
+def test_bench_bc6h_graph_row_check_bites(monkeypatch):
+    """The graph row's first image is held to the eager step's: a graph
+    whose replay answers otherwise fails the bench."""
+    class Wrong(_EagerGraph):
+        def replay(self):
+            out = super().replay()
+            if isinstance(out, tuple) and out[0].dim() == 4:
+                self.out = (out[0] + 1.0, out[1])
+            return self.out
+    monkeypatch.setattr(BP.graphs, "Graph", Wrong)
+    with pytest.raises(AssertionError, match="graph and the eager"):
+        BP.bench_bc6h_encoder(torch.device("cpu"), _bc6h_args(), "graph")
 
 
 def test_step_times_and_spread():

@@ -21,6 +21,7 @@ Tolerances (float32 unless stated):
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -421,6 +422,56 @@ def test_lqt_backward_matches_sequential(h):
     jp, jeta = jax.jit(JPL.lqt_backward_parallel)(*map(jnp.asarray, prob))
     _close_scaled(p_par.numpy(), jp)
     _close_scaled(eta.numpy(), jeta)
+
+
+class _LinalgSetting:
+    """A stand-in for torch.backends.cuda.preferred_linalg_library that
+    records its calls: with no argument it reads the setting, with one it
+    sets it."""
+
+    def __init__(self, value="default"):
+        self.value, self.calls = value, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        if args:
+            self.value = args[0]
+        return self.value
+
+
+def test_lu_setting_untouched_on_the_cpu(monkeypatch):
+    """On CPU tensors _solve and _inv neither read nor set torch's LU
+    library (a torch built without CUDA refuses "cusolver"), and the LQT
+    backward still agrees with JAX's."""
+    setting = _LinalgSetting()
+    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
+                        setting)
+    a = torch.tensor([[4.0, 1.0], [2.0, 3.0]])
+    torch.testing.assert_close(TPL._solve(a, torch.eye(2)) @ a, torch.eye(2))
+    torch.testing.assert_close(TPL._inv(a) @ a, torch.eye(2))
+    prob = _random_lqt(7, 5, 3, seed=19)
+    p_par, eta = TPL.lqt_backward_parallel(*_t(*prob))
+    jp, jeta = jax.jit(JPL.lqt_backward_parallel)(*map(jnp.asarray, prob))
+    _close_scaled(p_par.numpy(), jp)
+    _close_scaled(eta.numpy(), jeta)
+    assert setting.calls == []
+
+
+def test_lu_setting_restored_for_a_card_tensor(monkeypatch):
+    """For a tensor on a card the block runs with "cusolver" set, and the
+    setting found is put back on exit, after an error too."""
+    setting = _LinalgSetting("magma")
+    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
+                        setting)
+    on_card = SimpleNamespace(device=torch.device("cuda"))
+    with TPL._lu_library(on_card):
+        assert setting.value == "cusolver"
+    assert setting.value == "magma"
+    with pytest.raises(ValueError):
+        with TPL._lu_library(on_card):
+            assert setting.value == "cusolver"
+            raise ValueError("a failed solve")
+    assert setting.value == "magma"
 
 
 def test_combine_identity_and_associativity():

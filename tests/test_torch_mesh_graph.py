@@ -20,9 +20,9 @@ state them (float32; the decode is bit-exact):
     rtol 1e-5 / atol 1e-6;
   * against the port's own unsharded bodies: bit-equal (one rank's SUM and
     MIN are the identity);
-  * on the card at one NCCL rank: graphed MPPI and sequential iLQR
-    actions bit-equal to the eager sharded step, the parallel LQT within
-    1.25e-6 (its LU runs on MAGMA eagerly, on cuBLAS in a graph), and
+  * on the card at one NCCL rank: graphed MPPI, sequential iLQR and
+    parallel-LQT actions bit-equal to the eager sharded step (the LQT's LU
+    on cuSOLVER/cuBLAS both ways, mpc/parallel_lqr._lu_library), and
     within atol 1e-6 of the unsharded graphed Controller; the (1, 1)
     train step bit-equal with deterministic cuDNN; at 2 and 4 NCCL ranks
     atol 1e-6 (NCCL may sum in another order inside a graph).
@@ -423,16 +423,13 @@ def _graphed_sharded(cuda_mesh, n_ilqr, parallel, n=5, pipelined=False):
 @pytest.mark.parametrize("n_ilqr,parallel", _ILQR)
 def test_cuda_graphed_sharded_matches_eager_sharded(nccl_world, n_ilqr,
                                                     parallel):
-    """MPPI and sequential iLQR bit-equal to the eager sharded step on the
-    same noise, the parallel LQT within 1.25e-6; the generator where the
-    eager one leaves its own; and within atol 1e-6 of the unsharded
-    graphed Controller."""
+    """MPPI, sequential iLQR and the parallel LQT (its LU on cuSOLVER/
+    cuBLAS eager and captured) bit-equal to the eager sharded step on the
+    same noise; the generator where the eager one leaves its own; and
+    within atol 1e-6 of the unsharded graphed Controller."""
     r = _graphed_sharded(nccl_world, n_ilqr, parallel)
     for a, w in zip(r.got, r.want):
-        if parallel:
-            np.testing.assert_allclose(a, w, rtol=0, atol=1.25e-6)
-        else:
-            np.testing.assert_array_equal(a, w)
+        np.testing.assert_array_equal(a, w)
     unsharded = TR.Controller(r.params, r.goal, dataclasses.replace(
         r.cfg, rollout_axis=None), seed=11, device="cuda")
     assert unsharded.graphed

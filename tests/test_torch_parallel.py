@@ -265,6 +265,51 @@ def test_run_ranks_kills_a_rank_past_its_time():
         launch.run_ranks(_hangs, 2, device="cpu", timeout=10.0)
 
 
+# A rank function whose module takes _SLOW_START_S to import in a spawned
+# rank (and no time in this process): a rank slow to start.
+_SLOW_START_S = 12.0
+_SLOW_MODULE = f"""
+import multiprocessing
+import time
+
+if multiprocessing.parent_process() is not None:
+    time.sleep({_SLOW_START_S})
+
+
+def rank_fn(rank):
+    return rank
+"""
+
+
+@pytest.fixture
+def slow_start(tmp_path, monkeypatch):
+    """rank_fn of a module that sleeps on import in each spawned rank (a
+    rank unpickles its function, importing its module, before it joins)."""
+    import importlib
+    (tmp_path / "dtx_slow_start_rank.py").write_text(_SLOW_MODULE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    module = importlib.import_module("dtx_slow_start_rank")
+    yield module.rank_fn
+    import sys
+    sys.modules.pop("dtx_slow_start_rank", None)
+
+
+def test_run_ranks_times_a_rank_from_its_join(slow_start):
+    """Ranks that take longer than `timeout` to start, and finish well
+    inside it once joined, succeed: the time runs from the join."""
+    assert launch.run_ranks(slow_start, 2, device="cpu",
+                            timeout=_SLOW_START_S / 2) == [0, 1]
+
+
+def test_run_ranks_names_ranks_that_never_join(slow_start, monkeypatch):
+    """Start-up has its own bounded allowance: ranks still starting when it
+    ends are killed and named."""
+    monkeypatch.setattr(launch, "START_TIMEOUT", 2.0)
+    with pytest.raises(RuntimeError, match=r"ranks \[0, 1\] of 2 .*ranks "
+                       r"\[0, 1\] did not join within 2.0 s"):
+        launch.run_ranks(slow_start, 2, device="cpu", timeout=_TIMEOUT)
+
+
 def test_run_ranks_defaults_to_the_card(monkeypatch):
     """Without `device` the ranks go on the cards; where there is none the
     call raises before any rank starts."""

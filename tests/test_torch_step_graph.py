@@ -14,7 +14,9 @@ tests/test_torch_ilqr.py state them:
   * action and the nominal the body leaves: atol 1e-5;
   * the diagnostics (min_cost, mean_cost, ess, ilqr_cost): rtol 1e-5.
 On the card the graph replays the eager step's own kernels: MPPI is held
-at atol 1e-6, iLQR at test_cuda_ilqr_step_matches_cpu's atol 1e-5.
+at atol 1e-6, iLQR at test_cuda_ilqr_step_matches_cpu's atol 1e-5; at
+ControllerConfig()'s full width the parallel LQT bit-equal, its LU on
+cuSOLVER/cuBLAS eager and captured (mpc/parallel_lqr._lu_library).
 """
 
 import dataclasses
@@ -282,3 +284,31 @@ def test_cuda_diag_holds_its_step(cuda):
     for k, v in diag.items():
         np.testing.assert_allclose(float(v), want[0][1][k], rtol=1e-5)
     assert float(diag["min_cost"]) != float(ctl.diag["min_cost"])
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_parallel_lqt_eager_bit_equal_to_graph(cuda):
+    """ControllerConfig() at full width, 2 iLQR iterations with the
+    parallel LQT on damped dynamics toward a random goal, 5 steps: the
+    eager control_step on the same noise gives the graphed Controller's
+    actions bit for bit (both run the LQT's LU on cuSOLVER/cuBLAS; on
+    torch's default routing, MAGMA, the eager step parted from the graph
+    by up to 0.022 in 5 steps), and torch's LU setting reads after the
+    steps as it did before them."""
+    cfg = dataclasses.replace(TR.ControllerConfig(), n_ilqr_iterations=2,
+                              ilqr_parallel=True)
+    library = torch.backends.cuda.preferred_linalg_library()
+    params = _params(cfg, cuda, damp=0.05)
+    rng = np.random.default_rng(13)
+    goal = torch.from_numpy((0.5 * rng.standard_normal(
+        cfg.dynamics.latent_dim)).astype(np.float32)).to(cuda)
+    n_blocks = (cfg.dynamics.image_size // 4) ** 2
+    obs = [_obs_words(n_blocks, 200 + i) for i in range(5)]
+    ctl = TR.Controller(params, goal, cfg, seed=11, device=cuda)
+    got = [ctl.step(w) for w in obs]
+    assert ctl.graphed
+    want, gen = _eager_steps(params, goal, cfg, obs, 11, cuda)
+    for a, (w, _) in zip(got, want):
+        np.testing.assert_array_equal(a, w)
+    assert torch.equal(ctl.generator.get_state(), gen.get_state())
+    assert torch.backends.cuda.preferred_linalg_library() == library
