@@ -108,6 +108,14 @@ all at once) and drives the port's three paths:
     each kernel held to its plain version there and at its tile's edge
     sizes, and the profiler's reading of each kernel before and after
     those rounds;
+  * "bench decode", after it, so that its back-to-back launches cannot
+    move those device times: tools.bench_decode, the counterpart of the
+    root bench.py, as a user runs it: BC7's rate at bench.py's 65,536
+    blocks with all 19 families', then BC7's at 1,048,576, each from
+    replays of a captured graph of back-to-back launches on copies that
+    span twice the L2 cache, beside the device time per launch, and each
+    witnessed inside the tool against the native runtime and the plain
+    version on the card;
   * then the last modules of the port: dtx-validate on a corpus written
     from the goldens' corpus_blocks (the 17 compressed files, each
     BIT-EXACT) with --fuzz 65,536 (19 families against the native
@@ -180,6 +188,7 @@ from detex_tpu_torch.parallel import launch
 from detex_tpu_torch.parallel import mesh as PM
 from detex_tpu_torch.texture import Texture
 from detex_tpu_torch.tools import bench_control_step as BCS
+from detex_tpu_torch.tools import bench_decode as BD
 from detex_tpu_torch.tools import bench_pipelines as BPL
 from detex_tpu_torch.tools import bench_train_step as BTS
 from detex_tpu_torch.tools import convert_sweep as CSW
@@ -488,22 +497,6 @@ def _time_ms(fn, reps: int = 21, inner: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
-
-
-def _device_ms(fn, inner: int = 20) -> float:
-    """Device time per call of fn(), by CUDA events around `inner`
-    back-to-back calls enqueued behind a spin kernel: the launches queue up
-    while it runs, so host enqueue time falls outside the events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(4_000_000)        # about 2 ms at 1.98 GHz
-    start.record()
-    for _ in range(inner):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / inner
 
 
 def _kernel_phase(rng) -> dict:
@@ -2646,17 +2639,17 @@ def _bc_timing(blocks: dict) -> dict:
 
 def _device_us(blocks: dict, smi: str) -> dict:
     """Device time per launch of each variant's kernel at N = 1,048,576:
-    {variant: (CUDA events, torch.profiler)}.  The events (_device_ms,
-    median of 5 windows of 20 launches) are the reading; torch.profiler's
-    median per launch record over 10 launches (None where it records no
-    kernel) is printed beside them, flagged where the two differ by more
-    than 3%."""
+    {variant: (CUDA events, torch.profiler)}.  The events
+    (tools.device_ms, median of 5 windows of 20 launches) are the reading;
+    torch.profiler's median per launch record over 10 launches (None where
+    it records no kernel) is printed beside them, flagged where the two
+    differ by more than 3%."""
     out = {}
     for variant, b in blocks.items():
         words, fn = _words(b), _wrapper(variant)
         kernel = _VARIANTS[variant][0].replace("_decode", "_kernel")
         events = 1e3 * statistics.median(
-            _device_ms(lambda: fn(words)) for _ in range(5))
+            tools.device_ms(lambda: fn(words)) for _ in range(5))
         prof = _profile_us(lambda: fn(words), kernel + "<", kernel + "(")
         out[variant] = (events, prof)
         out_words = fn(words[:1])[0].shape[1]
@@ -2867,9 +2860,9 @@ def etc_mode_batches(variant: str, blocks: np.ndarray, rng) -> dict:
 
 def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
     """Mode divergence and the tile kernels, measured: device time per call
-    (_device_ms) of the BC7 kernel on 1,048,576 of the tool's blocks (modes
-    uniform over 0-7), on the same blocks sorted by mode and on 8 batches
-    that keep those bits but force one mode; of the BC6H kernel (both
+    (tools.device_ms) of the BC7 kernel on 1,048,576 of the tool's blocks
+    (modes uniform over 0-7), on the same blocks sorted by mode and on 8
+    batches that keep those bits but force one mode; of the BC6H kernel (both
     signs) on 1,048,576 blocks drawn as the texture path draws them (mode
     codes uniform over the 14 modes and the 4 reserved codes), sorted, and
     forced to each of the 14 modes; of the ETC colour kernel (etc1, etc2,
@@ -2964,7 +2957,7 @@ def _mode_batch_timing(smi: str, tex_blocks: dict, rounds: int = 11) -> dict:
         for i in order.permutation(len(jobs)):
             name, fam, fn, k = jobs[i]
             w = words[(fam, k)]
-            ms[(name, k)].append(_device_ms(lambda: fn(w)))
+            ms[(name, k)].append(tools.device_ms(lambda: fn(w)))
     out = {key: statistics.median(v) for key, v in ms.items()}
     after = profiled()
     for name, (fam, _, _) in fns.items():
@@ -3467,6 +3460,45 @@ def _bench_pipelines_path(smi: str) -> dict:
     return launches
 
 
+def _bench_decode_path(smi: str) -> dict:
+    """tools.bench_decode on the card as a user runs it: the headline at
+    bench.py's 65,536 blocks with the 19 families at 65,536, then the
+    headline alone at 1,048,576; every line is witnessed inside the tool
+    (native and the plain version on the card; a miscompare raises).
+    Returns the launch counts."""
+    _reset_all_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = BD.main(["--n-blocks", str(BD.N_BLOCKS)])
+        rows += BD.main(["--n-blocks", str(_N_BIG), "--no-families"])
+    launches = _launched_every_variant("bench decode")
+    _bench_rows("bench decode", rows)
+    heads = [r for r in rows if "metric" in r]
+    families = [r["families"] for r in rows if "families" in r]
+    if [h["n_blocks"] for h in heads] != [BD.N_BLOCKS, _N_BIG] or \
+            len(families) != 1 or list(families[0]) != list(BD.FAMILIES):
+        raise AssertionError("bench decode: lines missing")
+    measured = [(f"BC7 headline N={h['n_blocks']}", h["value"], h)
+                for h in heads] + [
+        (f"{name} N={n}", row["blocks_per_s"], row)
+        for name, by_n in families[0].items() for n, row in by_n.items()]
+    for label, rate, row in measured:
+        if row["correctness"] != "ok":
+            raise AssertionError(f"bench decode: {label} {row}")
+        n = row["n_blocks"]
+        us = row["device_us"]
+        print(f"bench decode: {label}: {rate:.6g} blocks/s (graph of "
+              f"{row['launches_per_replay']} launches on {row['copies']} "
+              f"copies, spread {row['spread_pct']}%), device {us:.3f} us a "
+              f"launch ({n / us * 1e6:.6g} blocks/s), L2-resident "
+              f"{row['l2_resident']}, correctness {row['correctness']} on "
+              f"{smi}")
+    print(f"bench decode: vs native 1 thread "
+          f"({heads[0]['baseline_blocks_per_s']:.6g} blocks/s): "
+          + ", ".join(f"N={h['n_blocks']} {h['vs_baseline']}" for h in heads)
+          + f"; launches {launches}")
+    return launches
+
+
 def _last_modules_phase(smi: str) -> tuple:
     """The phases of the last modules.  Returns BC7's launches by path and
     the other variants' launches by path."""
@@ -3521,7 +3553,10 @@ def main() -> None:
     # Last: its rounds of back-to-back launches are not to move the device
     # times read before it.
     _phase("mode batches", _mode_batch_timing, smi, tex_blocks)
+    bench_decode = _phase("bench decode", _bench_decode_path, smi)
+    bc7_paths["bench decode"] = bench_decode.pop("bptc")
     last_bc7, last_paths = _last_modules_phase(smi)
+    last_paths["bench decode"] = bench_decode
     bc7_paths.update(last_bc7)
     for k in texture_kernels:
         k["launches_by_path"].update({

@@ -14,12 +14,13 @@ and of its benches and checks, which run the package's own paths:
     python -m detex_tpu_torch.tools.diag_mppi_gap
     python -m detex_tpu_torch.tools.mass_fuzz
     python -m detex_tpu_torch.tools.convert_sweep
+    python -m detex_tpu_torch.tools.bench_decode     (the root bench.py)
 
 They run on the card unless given `--device cpu`, which runs the kernels'
 plain versions.  The TPU tools' timing workarounds (the two-point
 fori_loop marginal method and its LO/HI trip counts) are left out: times
-come from CUDA events (`time_ms` for one call repeated, `step_times` for a
-loop of steps).
+come from CUDA events (`time_ms` for one call repeated, `device_ms` for a
+kernel's device time, `step_times` for a loop of steps).
 """
 
 from __future__ import annotations
@@ -94,6 +95,22 @@ def time_ms(fn, device: torch.device, reps: int = 21, inner: int = 10
                 fn()
             times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, inner: int = 20) -> float:
+    """Device time per call of fn(), by CUDA events around `inner`
+    back-to-back calls enqueued behind a spin kernel: the launches queue up
+    while it runs, so host enqueue time falls outside the events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)        # about 2 ms at 1.98 GHz
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
 
 
 def step_times(step, device: torch.device, warmup: int, steps: int):

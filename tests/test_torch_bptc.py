@@ -398,7 +398,7 @@ def test_cuda_kernel_mode_batches(cuda, batch):
 
 def test_port_imports_no_jax():
     """Every module of the port (tools included) and chip_smoke import
-    neither jax nor any module of the JAX package."""
+    neither jax nor any module of the JAX package, nor the root bench.py."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import detex_tpu_torch\n"
@@ -423,12 +423,13 @@ def test_port_imports_no_jax():
         "        'detex_tpu_torch.tools.mass_fuzz',\n"
         "        'detex_tpu_torch.tools.bench_control_step',\n"
         "        'detex_tpu_torch.tools.bench_train_step',\n"
-        "        'detex_tpu_torch.tools.bench_pipelines'} <= set(names)\n"
+        "        'detex_tpu_torch.tools.bench_pipelines',\n"
+        "        'detex_tpu_torch.tools.bench_decode'} <= set(names)\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'detex_tpu'\n"
-        "             or m.startswith('detex_tpu.'))\n"
+        "             or m.startswith('detex_tpu.') or m == 'bench')\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], check=True, cwd=_REPO,
@@ -490,8 +491,8 @@ def test_port_sources_name_no_jax_package():
     assert {root / name for name in (
         "ops/modes.py", "cli/view.py", "cli/validate.py",
         "tools/mass_fuzz.py", "tools/bench_control_step.py",
-        "tools/bench_train_step.py", "tools/bench_pipelines.py")} \
-        <= set(files)
+        "tools/bench_train_step.py", "tools/bench_pipelines.py",
+        "tools/bench_decode.py")} <= set(files)
     faults = []
     for path in files + [_REPO / "chip_smoke.py"]:
         faults += list(_python_faults(path) if path.suffix == ".py"
