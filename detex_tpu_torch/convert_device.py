@@ -47,6 +47,7 @@ from detex_tpu_torch import graphs
 from detex_tpu_torch import resolve_device
 from detex_tpu_torch import hdr as hdr_mod
 from detex_tpu_torch.convert import TABLE, ConversionError, match_conversion
+from detex_tpu_torch.utils import trace
 
 _U32 = 0xFFFFFFFF
 _DTYPES = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
@@ -73,13 +74,19 @@ def from_bytes(buf: np.ndarray, n_pixels: int, fmt: int,
     arr = np.ascontiguousarray(buf, dtype=np.uint8).view(
         _NP_DTYPES[F.component_size(fmt)]).reshape(n_pixels,
                                                    repr_lanes(fmt))
-    return torch.from_numpy(arr.copy()).to(device)
+    with trace.span("dtx.texture.upload"):
+        t = torch.from_numpy(arr.copy())
+        trace.count_copy(t, device)
+        return t.to(device)
 
 
 def to_bytes(t: torch.Tensor) -> np.ndarray:
     """A tensor in the lane representation -> flat u8 host buffer
     (little-endian)."""
-    return t.contiguous().cpu().numpy().view(np.uint8).ravel()
+    with trace.span("dtx.texture.copy_out"):
+        t = t.contiguous()
+        trace.count_copy(t, "cpu")
+        return t.cpu().numpy().view(np.uint8).ravel()
 
 
 def _u16(a: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,7 @@ from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.ops.bitops import words_from_bytes
 from detex_tpu_torch.parallel import mesh as mesh_mod
+from detex_tpu_torch.utils import trace
 
 _FULL = 0xFFFFFFFF
 BACKENDS = ("device", "torch", "native")
@@ -108,7 +109,11 @@ def _decoder(tex_fmt: int):
 
 
 def _words(blocks_u8: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(words_from_bytes(blocks_u8)).to(device)
+    with trace.span("dtx.texture.words"):
+        words = torch.from_numpy(words_from_bytes(blocks_u8))
+    with trace.span("dtx.texture.upload"):
+        trace.count_copy(words, device)
+        return words.to(device)
 
 
 def decode_blocks_device(tex_fmt: int, words: torch.Tensor,

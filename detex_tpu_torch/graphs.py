@@ -53,6 +53,7 @@ import torch
 
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
 from detex_tpu_torch.parallel import mesh as mesh_mod
+from detex_tpu_torch.utils import trace
 
 # Eager runs of the body before a capture.  The first makes what the body
 # creates lazily; the second runs on what the first left, as every replay
@@ -155,6 +156,11 @@ class Graph:
         """Warm up and capture, once."""
         if self.graph is not None:
             return
+        with trace.span("dtx.graph.capture"):
+            self._capture(body, reset)
+        trace.count("dtx.graph.captures", 1)
+
+    def _capture(self, body, reset) -> None:
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
@@ -263,5 +269,6 @@ def run(key: tuple, make, x: torch.Tensor, read=None):
     call.  Without read the result is the program's, and the key's next
     call may overwrite it."""
     with _LOCK:
-        out = program(key, make)(x)
+        with trace.span("dtx.texture.run"):
+            out = program(key, make)(x)
         return out if read is None else read(out)

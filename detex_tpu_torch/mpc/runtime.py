@@ -38,6 +38,7 @@ from detex_tpu_torch.mpc import ilqr as ilqr_mod
 from detex_tpu_torch.mpc import mppi as mppi_mod
 from detex_tpu_torch.ops import bptc
 from detex_tpu_torch.parallel import mesh as mesh_mod
+from detex_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,16 +310,24 @@ class Controller:
     @torch.no_grad()
     def step(self, obs_words) -> np.ndarray:
         """(N_blocks, 4) int32 BC7 words (numpy or tensor) -> (A,) action."""
-        words = torch.as_tensor(obs_words, dtype=torch.int32)
-        if self._program is not None:
-            self._program.load(words)
-            action, self.diag = self._program(self.generator)
-            return action.cpu().numpy()
-        action, self.nominal, self.diag = control_step(
-            self.params, self.nominal, self.generator,
-            words.to(self.device).contiguous(), self.goal_z, self.cfg,
-            mesh=self.mesh)
-        return action.cpu().numpy()
+        with trace.span("dtx.control.step"):
+            with trace.span("dtx.control.load"):
+                words = torch.as_tensor(obs_words, dtype=torch.int32)
+                trace.count_copy(words, self.device)
+                if self._program is not None:
+                    self._program.load(words)
+                else:
+                    words = words.to(self.device).contiguous()
+            with trace.span("dtx.control.plan"):
+                if self._program is not None:
+                    action, self.diag = self._program(self.generator)
+                else:
+                    action, self.nominal, self.diag = control_step(
+                        self.params, self.nominal, self.generator, words,
+                        self.goal_z, self.cfg, mesh=self.mesh)
+            with trace.span("dtx.control.wait"):
+                trace.count_copy(action, "cpu")
+                return action.cpu().numpy()
 
 
 class PipelinedController(Controller):
@@ -361,25 +370,32 @@ class PipelinedController(Controller):
         """Enqueue planning on `obs_words`; return the action from the
         previous observation (None on the first call: nothing is in
         flight yet)."""
-        slot, self._slot = self._slot, self._slot ^ 1
-        host = self._words_host[slot]
-        host.copy_(torch.as_tensor(obs_words, dtype=torch.int32))
-        if self._program is not None:
-            self._program.load(host, non_blocking=True)
-            action, self.diag = self._program(self.generator)
-        else:
-            action, self.nominal, self.diag = control_step(
-                self.params, self.nominal, self.generator,
-                host.to(self.device, non_blocking=True), self.goal_z,
-                self.cfg, mesh=self.mesh)
-        out = self._action_host[slot]
-        out.copy_(action, non_blocking=True)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        prev, self._pending = self._pending, (out, event)
-        return self._collect(prev)
+        with trace.span("dtx.control.step"):
+            slot, self._slot = self._slot, self._slot ^ 1
+            host = self._words_host[slot]
+            with trace.span("dtx.control.load"):
+                host.copy_(torch.as_tensor(obs_words, dtype=torch.int32))
+                trace.count_copy(host, self.device)
+                if self._program is not None:
+                    self._program.load(host, non_blocking=True)
+                else:
+                    words = host.to(self.device, non_blocking=True)
+            with trace.span("dtx.control.plan"):
+                if self._program is not None:
+                    action, self.diag = self._program(self.generator)
+                else:
+                    action, self.nominal, self.diag = control_step(
+                        self.params, self.nominal, self.generator, words,
+                        self.goal_z, self.cfg, mesh=self.mesh)
+                out = self._action_host[slot]
+                trace.count_copy(action, "cpu")
+                out.copy_(action, non_blocking=True)
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+            prev, self._pending = self._pending, (out, event)
+            return self._collect(prev)
 
     def flush(self) -> Optional[np.ndarray]:
         """Drain the pipeline: wait for the action in flight."""
@@ -391,6 +407,7 @@ class PipelinedController(Controller):
         if pending is None:
             return None
         out, event = pending
-        if event is not None:
-            event.synchronize()
-        return out.numpy().copy()
+        with trace.span("dtx.control.wait"):
+            if event is not None:
+                event.synchronize()
+            return out.numpy().copy()

@@ -37,6 +37,7 @@ from detex_tpu_torch.mpc import dynamics as D
 from detex_tpu_torch.mpc.runtime import decode_obs_batch
 from detex_tpu_torch.parallel import mesh as mesh_mod
 from detex_tpu_torch.utils import checkpoint as ckpt
+from detex_tpu_torch.utils import trace
 from detex_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -346,22 +347,26 @@ class _TrainGraph:
         slot, self._slot = self._slot, self._slot ^ 1
         event = self._uploaded[slot]
         if event is not None and not event.query():
-            event.synchronize()
+            with trace.span("dtx.train.wait"):
+                event.synchronize()
         host = self._host[slot]
-        for k, buf in self.batch.items():
-            src = torch.as_tensor(batch[k])
-            if self.mesh is not None:
-                src = mesh_mod.shard_batch(src, self.mesh, "dp")
-            if tuple(src.shape) != tuple(buf.shape) or \
-                    src.dtype != buf.dtype:
-                raise ValueError(f"batch {k} of shape {tuple(src.shape)} "
-                                 f"{src.dtype}, expected "
-                                 f"{tuple(buf.shape)} {buf.dtype}")
-            host[k].copy_(src)
-            buf.copy_(host[k], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self._uploaded[slot] = event
+        with trace.span("dtx.train.stage"):
+            for k, buf in self.batch.items():
+                src = torch.as_tensor(batch[k])
+                if self.mesh is not None:
+                    src = mesh_mod.shard_batch(src, self.mesh, "dp")
+                if tuple(src.shape) != tuple(buf.shape) or \
+                        src.dtype != buf.dtype:
+                    raise ValueError(f"batch {k} of shape "
+                                     f"{tuple(src.shape)} {src.dtype}, "
+                                     f"expected {tuple(buf.shape)} "
+                                     f"{buf.dtype}")
+                host[k].copy_(src)
+                trace.count_copy(host[k], buf.device)
+                buf.copy_(host[k], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._uploaded[slot] = event
 
     def capture(self) -> None:
         """Save the state, warm up, put the state back, capture; once."""
@@ -477,31 +482,41 @@ def train(cfg: TrainConfig, metrics: Optional[MetricsLogger] = None,
         step_fn = make_train_step(dcfg, optimizer, cfg.compressed_obs, mesh)
     loss = torch.zeros(())
     for step in range(start_step, cfg.n_steps):
-        rng = np.random.default_rng(
-            np.random.SeedSequence([cfg.seed, step]))
-        batch = env.sample_batch(rng, cfg.batch_size)
-        if graph is not None:
-            graph.load(batch)
-            loss = graph()
-        else:
-            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
-            if mesh is not None:
-                batch = {k: mesh_mod.shard_batch(v, mesh, "dp")
-                         for k, v in batch.items()}
-            params, loss = step_fn(params, {k: v.to(device)
-                                            for k, v in batch.items()})
-        if lead and (step % 10 == 0 or step == cfg.n_steps - 1):
-            metrics.log(step, loss=float(loss))
-        if (ckpt_path is not None and cfg.checkpoint_every
-                and (step + 1) % cfg.checkpoint_every == 0):
-            whole, opt = params, optimizer.state_dict()
-            if mesh is not None:        # every rank takes part in gathers
-                whole = D.gather_params(params, mesh)
-                opt = _opt_state(opt, lambda x, n, k: D.gather_leaf(
-                    x, mesh, n, k), names)
-            if lead:
-                ckpt_path.parent.mkdir(parents=True, exist_ok=True)
-                ckpt.save(str(ckpt_path), ckpt.controller_state(
-                    whole, opt, torch.zeros((1,)), generator.get_state(),
-                    step + 1))
+        with trace.span("dtx.train.step"):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([cfg.seed, step]))
+            with trace.span("dtx.train.env"):
+                batch = env.sample_batch(rng, cfg.batch_size)
+            if graph is not None:
+                graph.load(batch)
+                with trace.span("dtx.train.launch"):
+                    loss = graph()
+            else:
+                with trace.span("dtx.train.stage"):
+                    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+                    if mesh is not None:
+                        batch = {k: mesh_mod.shard_batch(v, mesh, "dp")
+                                 for k, v in batch.items()}
+                    for v in batch.values():
+                        trace.count_copy(v, device)
+                    batch = {k: v.to(device) for k, v in batch.items()}
+                with trace.span("dtx.train.launch"):
+                    params, loss = step_fn(params, batch)
+            if lead and (step % 10 == 0 or step == cfg.n_steps - 1):
+                with trace.span("dtx.train.wait"):
+                    value = float(loss)
+                metrics.log(step, loss=value)
+            if (ckpt_path is not None and cfg.checkpoint_every
+                    and (step + 1) % cfg.checkpoint_every == 0):
+                with trace.span("dtx.train.checkpoint"):
+                    whole, opt = params, optimizer.state_dict()
+                    if mesh is not None:  # every rank takes part in gathers
+                        whole = D.gather_params(params, mesh)
+                        opt = _opt_state(opt, lambda x, n, k: D.gather_leaf(
+                            x, mesh, n, k), names)
+                    if lead:
+                        ckpt_path.parent.mkdir(parents=True, exist_ok=True)
+                        ckpt.save(str(ckpt_path), ckpt.controller_state(
+                            whole, opt, torch.zeros((1,)),
+                            generator.get_state(), step + 1))
     return params, optimizer, float(loss)
