@@ -51,7 +51,6 @@ from detex_tpu_torch.utils import trace
 
 _U32 = 0xFFFFFFFF
 _DTYPES = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-_NP_DTYPES = {1: np.uint8, 2: np.int16, 4: np.int32}
 
 # --- representation -----------------------------------------------------------
 
@@ -66,27 +65,77 @@ def repr_lanes(fmt: int) -> int:
     return F.pixel_size(fmt) // F.component_size(fmt)
 
 
+def _fill(host: torch.Tensor, src: np.ndarray) -> torch.Tensor:
+    """Copy src's bytes into the contiguous host tensor `host` in one pass,
+    in C order, src cast to uint8 as np.ascontiguousarray(src, np.uint8)
+    casts it: host's bytes viewed in src's shape are src.  Returns host."""
+    src = np.asarray(src)
+    np.copyto(host.numpy().view(np.uint8).reshape(src.shape), src,
+              casting="unsafe")
+    return host
+
+
+def staged(src: np.ndarray, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """A host tensor of `shape` and `dtype` holding src's bytes (_fill),
+    to be uploaded to `device`: for a card, a pinned block taken from
+    torch's caching host allocator."""
+    return _fill(torch.empty(shape, dtype=dtype,
+                             pin_memory=device.type == "cuda"), src)
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The host tensor `host` on `device`, the copy enqueued without a
+    wait.  From a pinned block (staged()) the caching host allocator
+    records the copy's event and hands the block to no one else until the
+    copy has run, so the caller may drop it at once."""
+    trace.count_copy(host, device)
+    if host.is_pinned():
+        trace.count_pinned(host)
+    return host.to(device, non_blocking=True)
+
+
 def from_bytes(buf: np.ndarray, n_pixels: int, fmt: int,
                device="cuda") -> torch.Tensor:
     """Flat u8 host buffer -> (n_pixels, lanes) tensor on `device` (the
-    card unless device="cpu")."""
+    card unless device="cpu"), the bytes copied once into a staged block
+    (staged, upload)."""
     device = resolve_device(device)
-    arr = np.ascontiguousarray(buf, dtype=np.uint8).view(
-        _NP_DTYPES[F.component_size(fmt)]).reshape(n_pixels,
-                                                   repr_lanes(fmt))
     with trace.span("dtx.texture.upload"):
-        t = torch.from_numpy(arr.copy())
-        trace.count_copy(t, device)
-        return t.to(device)
+        return upload(staged(buf, (n_pixels, repr_lanes(fmt)),
+                             repr_dtype(fmt), device), device)
 
 
 def to_bytes(t: torch.Tensor) -> np.ndarray:
     """A tensor in the lane representation -> flat u8 host buffer
-    (little-endian)."""
+    (little-endian).
+
+    A tensor on a card is copied into a pinned block of its shape and
+    dtype from torch's caching host allocator, and only that copy is
+    waited for (an event recorded after it), so a caller holding a lock
+    over the tensor (graphs.run's `read`) has the bytes before it lets
+    go.  Each call returns a block of its own, which the caller owns:
+    when the array is freed the block goes back to the cache, and the
+    next call of that size takes it again without a cudaHostAlloc.  A
+    call that finds no free block (a size's first, or while callers hold
+    every earlier one) pays a fresh cudaHostAlloc (PERF.md weighs it
+    against the pageable copy it replaces).  So the pinned memory held is
+    the peak of what callers hold at once plus one call's staging, each
+    block rounded up to a power of two by the cache, which keeps freed
+    blocks pinned until torch._C._host_emptyCache() (where torch has it).
+    A CPU tensor's bytes are returned as its numpy view."""
     with trace.span("dtx.texture.copy_out"):
         t = t.contiguous()
         trace.count_copy(t, "cpu")
-        return t.cpu().numpy().view(np.uint8).ravel()
+        if not t.is_cuda:
+            return t.cpu().numpy().view(np.uint8).ravel()
+        block = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        block.copy_(t, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(t.device))
+        copied.synchronize()
+        trace.count_pinned(block)
+        return block.numpy().view(np.uint8).ravel()
 
 
 def _u16(a: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,23 @@ their plain PyTorch versions, and nothing falls back from one to the other.
 A format pair with no conversion path raises ConversionError on every
 backend.
 
+Host copies on a card: a call's words go up, and a "device" call's image
+comes back, through pinned host blocks taken from torch's caching host
+allocator (torch.empty(..., pin_memory=True)), never through fresh
+pageable memory.  The words are copied once into a pinned block viewed as
+int32 words and uploaded without a wait (convert_device.staged, .upload);
+the image is copied into a pinned block of its own, the copy alone is
+waited for under graphs.run's lock, and the block's numpy view is
+returned (convert_device.to_bytes).  The caller owns that array: later
+calls do not change it, and when it is freed its block goes back to the
+cache, where the next call of the size takes it without a cudaHostAlloc.
+So the pinned memory a process holds is the peak of what its callers
+hold at once plus one call's staging, each block rounded up to a power
+of two by the cache, which keeps freed blocks pinned until
+torch._C._host_emptyCache() (where torch has it) releases them.  A
+caller that keeps every image holds that many blocks pinned.  On the CPU
+the same single copies go through ordinary host memory.
+
 One program per call, as in the JAX engine: on a card every "device"
 texture call (and the "device" conversion of an uncompressed texture,
 convert_device.convert_pixels_torch) whose key was called before is one
@@ -56,7 +73,6 @@ from detex_tpu_torch import graphs
 from detex_tpu_torch.texture import Texture
 from detex_tpu_torch import convert_device as CD
 from detex_tpu_torch.ops import bc, bptc, bptc_float, eac, etc, rgtc
-from detex_tpu_torch.ops.bitops import words_from_bytes
 from detex_tpu_torch.parallel import mesh as mesh_mod
 from detex_tpu_torch.utils import trace
 
@@ -109,11 +125,15 @@ def _decoder(tex_fmt: int):
 
 
 def _words(blocks_u8: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(N, block bytes) u8 blocks -> (N, block bytes / 4) int32
+    little-endian words on `device`, the bytes copied once into a staged
+    block viewed as those words (convert_device.staged, .upload)."""
     with trace.span("dtx.texture.words"):
-        words = torch.from_numpy(words_from_bytes(blocks_u8))
+        words = CD.staged(blocks_u8, (blocks_u8.shape[0],
+                                      blocks_u8.shape[1] // 4),
+                          torch.int32, device)
     with trace.span("dtx.texture.upload"):
-        trace.count_copy(words, device)
-        return words.to(device)
+        return CD.upload(words, device)
 
 
 def decode_blocks_device(tex_fmt: int, words: torch.Tensor,
@@ -314,7 +334,9 @@ def decompress_texture_linear(tex: Texture, pixel_format: int = None,
     """Decode a whole texture row-major (reference
     detexDecompressTextureLinear, texture.c:105-145).  Returns flat u8
     bytes of width * height pixels in `pixel_format` (default: the
-    format's decoded pixel format)."""
+    format's decoded pixel format), the caller's own: with backend
+    "device" on a card, the numpy view of a pinned block from torch's
+    caching host allocator (module docstring)."""
     global LAST_BACKEND
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")

@@ -25,12 +25,16 @@ body, so a replay launches what it did without them):
                         control_step on the CPU or a gloo mesh)
   dtx.control.wait      the action to the host: the host waits for the
                         card here
-  dtx.texture.words     words_from_bytes: the texture's bytes as words
-  dtx.texture.upload    the words to the card
+  dtx.texture.words     the texture's bytes copied into a host block as
+                        words (convert_device.staged)
+  dtx.texture.upload    the words (or convert_device.from_bytes' pixels)
+                        to the card: from a pinned block the enqueue
+                        alone, its copy then waited for in .copy_out
   dtx.texture.run       graphs.run: the key's program found, its input
                         copied, its eager first call or its replay launched
-  dtx.texture.copy_out  convert_device.to_bytes: the wait for the card and
-                        the copy into host memory
+  dtx.texture.copy_out  convert_device.to_bytes: the copy into a host
+                        block and the wait for it, and so for all the
+                        card still had to do (the upload, the replay)
   dtx.train.step        one iteration of train()'s loop
   dtx.train.env         env.sample_batch
   dtx.train.stage       the batch into the pinned buffers and up (on the
@@ -47,15 +51,25 @@ The counters, by name:
   dtx.h2d_bytes, dtx.d2h_bytes  bytes copied from a host tensor to a CUDA
                                 one and back, counted where the copy is
                                 made (count_copy)
+  dtx.pinned_copies,            copies staged in a pinned host block from
+  dtx.pinned_bytes              torch's caching host allocator, and the
+                                bytes asked for (count_pinned; the cache
+                                pins each block's size rounded up to a
+                                power of two)
   dtx.graph.captures            graphs.Graph captures
 
 For an operator: snapshot() gives the spans' totals and the counters,
-with the kernels' launch counts (graphs.launch_counts) and the
-collectives' bytes (parallel/mesh.COLLECTIVE_BYTES), read where they are
-kept.  Around a stretch of serving, enable(True), reset() and snapshot()
-give the host time per stage and the bytes each way a request, which
-size a deployment's PCIe load; dtx.graph.captures should stay at zero in
-a steady state, and rises where keys churn past graphs.PROGRAMS_KEPT.
+with the kernels' launch counts (graphs.launch_counts), the collectives'
+bytes (parallel/mesh.COLLECTIVE_BYTES), read where they are kept, and,
+in a process that has used a card, host_allocs: the caching host
+allocator's count of fresh pinned allocations (cudaHostAlloc).  Over a
+stretch of calls, 1 - (its change) / (dtx.pinned_copies' change) is the
+share of staged copies the cache served; it reads 1.0 in a steady state
+whose callers free what the engine returned.  Around a stretch of
+serving, enable(True), reset() and snapshot() give the host time per
+stage and the bytes each way a request, which size a deployment's PCIe
+load; dtx.graph.captures should stay at zero in a steady state, and
+rises where keys churn past graphs.PROGRAMS_KEPT.
 """
 
 from __future__ import annotations
@@ -152,16 +166,30 @@ def count_copy(t: torch.Tensor, device) -> None:
         count("dtx.h2d_bytes" if to_card else "dtx.d2h_bytes", t.nbytes)
 
 
+def count_pinned(block: torch.Tensor) -> None:
+    """Count one copy staged in the pinned host block `block` as
+    dtx.pinned_copies and its bytes as dtx.pinned_bytes, where recording
+    is on."""
+    count("dtx.pinned_copies", 1)
+    count("dtx.pinned_bytes", block.nbytes)
+
+
 def snapshot() -> dict:
     """{"spans": {name: {"count", "total_s", "max_s"}}, "counts": the
     counters, "launches": graphs.launch_counts(), "collective_bytes":
-    parallel/mesh.COLLECTIVE_BYTES by (collective, axis)}, as they stand."""
+    parallel/mesh.COLLECTIVE_BYTES by (collective, axis)}, as they stand,
+    and "host_allocs", the caching host allocator's fresh allocations,
+    where this process has used a card (absent otherwise)."""
     from detex_tpu_torch import graphs
     from detex_tpu_torch.parallel import mesh
     with _LOCK:
         spans = {name: {"count": c, "total_s": s, "max_s": m}
                  for name, (c, s, m) in _SPANS.items()}
         counts = dict(_COUNTS)
-    return {"spans": spans, "counts": counts,
+    snap = {"spans": spans, "counts": counts,
             "launches": graphs.launch_counts(),
             "collective_bytes": dict(mesh.COLLECTIVE_BYTES)}
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None and torch.cuda.is_initialized():
+        snap["host_allocs"] = stats()["num_host_alloc"]
+    return snap

@@ -245,7 +245,9 @@ def test_cuda_a_4096_bc7_call_counts_its_bytes_each_way(cuda):
     assert out.size == 4096 * 4096 * 4
     snap = trace.snapshot()
     assert snap["counts"] == {"dtx.h2d_bytes": 16_777_216,
-                              "dtx.d2h_bytes": 67_108_864}
+                              "dtx.d2h_bytes": 67_108_864,
+                              "dtx.pinned_copies": 2,
+                              "dtx.pinned_bytes": 83_886_080}
     assert {k: v["count"] for k, v in snap["spans"].items()} == {
         "dtx.texture.words": 1, "dtx.texture.upload": 1,
         "dtx.texture.run": 1, "dtx.texture.copy_out": 1}
