@@ -10,7 +10,7 @@ all at once) and drives the port's three paths:
     step's 64 x 256 blocks), then 5 requests served through the
     full-width control step (ControllerConfig(): 64x64 BC7 observation,
     8192 x 32 MPPI rollouts, bf16) by a Controller, whose steps on the
-    card are replays of one captured CUDA graph (runtime._StepGraph, the
+    card are replays of one captured CUDA graph (runtime._StepProgram, the
     counterpart of jax.jit); each phase's BC7 count takes a Controller's
     GRAPH_WARMUP eager steps before its capture and one launch a replay;
   * the rest of the control loop at the same width: 12 steps with 2 iLQR

@@ -5,7 +5,7 @@ The port's counterpart on one card is a CUDA graph captured from the
 eager body: one replay launches every kernel of the step with no Python
 between them.  Three paths use it:
 
-  * the control step, mpc/runtime._StepGraph (jax.jit at
+  * the control step, mpc/runtime._StepProgram (jax.jit at
     detex_tpu/mpc/runtime.py:158-160);
   * the train step, mpc/train_loop._TrainGraph (detex_tpu/mpc/
     train_loop.py:218-233);

@@ -62,7 +62,7 @@ def rollout_costs(dynamics: Callable, cost: Callable, z0: torch.Tensor,
 def draw_noise(eps: torch.Tensor, generator, sigma: float) -> torch.Tensor:
     """The rollouts' noise randn(K, H, A) * sigma from `generator`, drawn
     into `eps` in place: mppi_step draws it so, and the captured step
-    (runtime._StepGraph) into its static buffer before each replay."""
+    (runtime._StepProgram) into its static buffer before each step."""
     torch.randn(eps.shape, generator=generator, out=eps)
     return eps.mul_(sigma)
 

@@ -25,6 +25,8 @@ body, so a replay launches what it did without them):
                         control_step on the CPU or a gloo mesh)
   dtx.control.wait      the action to the host: the host waits for the
                         card here
+  dtx.tdmpc2.draw       TD-MPC2's draws of a step into the step's static
+                        buffers (inside dtx.control.plan)
   dtx.texture.words     the texture's bytes copied into a host block as
                         words (convert_device.staged)
   dtx.texture.upload    the words (or convert_device.from_bytes' pixels)
@@ -57,6 +59,8 @@ The counters, by name:
                                 pins each block's size rounded up to a
                                 power of two)
   dtx.graph.captures            graphs.Graph captures
+  dtx.tdmpc2.rows               rows through TD-MPC2's MLPs, added once a
+                                step (tdmpc2.mlp_rows)
 
 For an operator: snapshot() gives the spans' totals and the counters,
 with the kernels' launch counts (graphs.launch_counts), the collectives'

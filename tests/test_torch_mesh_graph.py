@@ -1,5 +1,5 @@
 """The sharded step's one-program form (mpc/runtime.py: step_body and
-_StepGraph with a mesh; mpc/train_loop.py: train_body and _TrainGraph with
+_StepProgram with a mesh; mpc/train_loop.py: train_body and _TrainGraph with
 a mesh; parallel/mesh.py: capturable; graphs.py: snapshot / take_back /
 add_back): on the CPU, the bodies the CUDA graphs capture, run eagerly on
 a gloo world of one in this process, against the JAX package's steps
@@ -140,31 +140,32 @@ def test_step_body_on_a_mesh_vs_jax_sharded_control_step(jx, world, n_ilqr,
     def body(cfg, mesh):
         nominal_buf = torch.from_numpy(nominal.copy())
         with torch.no_grad():
-            packed, names = TR.step_body(
+            packed, layout = TR.step_body(
                 TD.params_from_jax(host, mesh=mesh), nominal_buf,
                 torch.from_numpy(words), torch.from_numpy(goal),
                 torch.from_numpy(eps), cfg, mesh)
-        return packed, names, nominal_buf
+        return packed, layout, nominal_buf
 
     PM.reset_collective_bytes()
-    packed, names, left = body(tcfg, world)
+    packed, layout, left = body(tcfg, world)
     nbytes = dict(PM.COLLECTIVE_BYTES)
-    action, diag = TR.unpack_step(packed, names, mcfg.action_dim)
-    assert set(names) == set(jd)
+    diag = TR.unpack_outputs(packed, layout)
+    action = diag.pop("action")
+    assert set(diag) == set(jd)
     np.testing.assert_allclose(action.numpy(), np.asarray(ja), rtol=0,
                                atol=1e-5)
     np.testing.assert_allclose(left.numpy(), np.asarray(js), rtol=0,
                                atol=1e-5)
-    for k in names:
+    for k in diag:
         np.testing.assert_allclose(float(diag[k]), float(jd[k]), rtol=1e-5,
                                    err_msg=k)
     # MIN of the baseline, then one SUM of H*A + 3 floats, over "dp".
     assert nbytes == {("all_reduce_min", "dp"): 4,
                       ("all_reduce_sum", "dp"):
                       (mcfg.horizon * mcfg.action_dim + 3) * 4}
-    want, want_names, want_left = body(
+    want, want_layout, want_left = body(
         dataclasses.replace(tcfg, rollout_axis=None), None)
-    assert names == want_names
+    assert layout == want_layout
     assert torch.equal(packed, want) and torch.equal(left, want_left)
 
 
@@ -278,7 +279,7 @@ def test_cpu_controller_on_a_mesh_stays_eager(world, pipelined):
     ctl = cls(params, goal, cfg, seed=3, device="cpu", mesh=world)
     plain = cls(params, goal, dataclasses.replace(cfg, rollout_axis=None),
                 seed=3, device="cpu")
-    assert ctl.graphed is False and ctl._program is None
+    assert ctl.graphed is False and ctl._program.graph is None
     for i in range(2):
         words = _obs_words(64, 70 + i)
         got, want = ctl.step(words), plain.step(words)

@@ -256,7 +256,8 @@ def test_config_defaults_match_jax():
     """The full-width slice is ControllerConfig()'s defaults on both
     sides (64x64 obs, features 32-256, latent 128, hidden 512, 8192 x 32
     rollouts); ControllerConfig, ILQRConfig and TrainConfig agree field for
-    field but for the dtype's type."""
+    field but for the dtype's type and the port's ControllerConfig.tdmpc2,
+    a model the JAX package does not serve."""
     from detex_tpu.mpc import ilqr as JI
     from detex_tpu.mpc import train_loop as JT
     from detex_tpu_torch.mpc import ilqr as TI
@@ -280,6 +281,9 @@ def test_config_defaults_match_jax():
         assert plain(jc) == plain(tc), type(tc).__name__
     jd, td = plain(JR.ControllerConfig()), plain(TR.ControllerConfig())
     assert jd["rollout_axis"] is None
+    # The port's one field beyond JAX's, last: TD-MPC2 in place of the
+    # visual-MPC model (mpc/tdmpc2.py), off by default.
+    assert list(td)[-1] == "tdmpc2" and td.pop("tdmpc2") is None
     assert jd == td
     assert list(jd) == list(td)            # the same fields, in order
     assert TD.DynamicsConfig().compute_dtype == torch.bfloat16

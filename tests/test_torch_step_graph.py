@@ -1,11 +1,11 @@
 """The control step's one-program form (mpc/runtime.py: step_body,
-_StepGraph; mpc/mppi.py: draw_noise): on the CPU, the body the CUDA graph
+_StepProgram; mpc/mppi.py: draw_noise): on the CPU, the body the CUDA graph
 captures, run eagerly on its static buffers, against the JAX package's
 control_step (which jax.jit serves as one program,
 detex_tpu/mpc/runtime.py:158-160); the noise drawn into the static buffer
-against the draw inside mppi_step; and the CPU Controller, which stays
-eager.  Tests marked `cuda` hold the graphed Controller to the eager step
-on a card and skip here.
+against the draw inside mppi_step; and the CPU Controller, which runs
+the same body eagerly.  Tests marked `cuda` hold the graphed Controller
+to the eager step on a card and skip here.
 
 Tolerances (float32; the decode is bit-exact, so differences come only
 from the summation order of convs, matmuls, the cost sums and iLQR's
@@ -92,18 +92,19 @@ def test_step_body_parity_small_cfg_f32(jx, n_ilqr, parallel):
     words_buf = torch.from_numpy(words)
     eps_buf = torch.from_numpy(eps)
     with torch.no_grad():
-        packed, names = TR.step_body(tp, nominal_buf, words_buf,
-                                     torch.from_numpy(goal), eps_buf, tcfg)
-    action, diag = TR.unpack_step(packed, names, mcfg.action_dim)
+        packed, layout = TR.step_body(tp, nominal_buf, words_buf,
+                                      torch.from_numpy(goal), eps_buf, tcfg)
+    diag = TR.unpack_outputs(packed, layout)
+    action = diag.pop("action")
     assert packed.dtype == torch.float32
-    assert set(names) == set(jd) == (
+    assert set(diag) == set(jd) == (
         {"min_cost", "mean_cost", "ess"} | ({"ilqr_cost"} if n_ilqr
                                             else set()))
     np.testing.assert_allclose(action.numpy(), np.asarray(ja), rtol=0,
                                atol=1e-5)
     np.testing.assert_allclose(nominal_buf.numpy(), np.asarray(js), rtol=0,
                                atol=1e-5)
-    for k in names:
+    for k in diag:
         np.testing.assert_allclose(float(diag[k]), float(jd[k]), rtol=1e-5,
                                    err_msg=k)
     # The body is control_step itself: equal to it on the CPU bit for bit.
@@ -112,7 +113,7 @@ def test_step_body_parity_small_cfg_f32(jx, n_ilqr, parallel):
             tp, torch.from_numpy(nominal), None, words_buf,
             torch.from_numpy(goal), tcfg, eps=eps_buf)
     assert torch.equal(action, want_a) and torch.equal(nominal_buf, want_s)
-    assert all(torch.equal(diag[k], want_d[k]) for k in names)
+    assert all(torch.equal(diag[k], want_d[k]) for k in diag)
 
 
 @pytest.mark.parametrize("sigma", [0.3, 1.0, 0.07])
@@ -186,7 +187,7 @@ def test_cpu_controller_is_eager_and_matches_control_step(n_ilqr, parallel):
     params, goal = _params(cfg, damp=0.05), torch.zeros(64)
     obs = [_obs_words(64, 90 + i) for i in range(3)]
     ctl = TR.Controller(params, goal, cfg, seed=3, device="cpu")
-    assert ctl.graphed is False and ctl._program is None
+    assert ctl.graphed is False and ctl._program.graph is None
     with pytest.raises(AttributeError):
         ctl.graphed = True
     want, gen = _eager_steps(params, goal, cfg, obs, 3, "cpu")
@@ -194,15 +195,19 @@ def test_cpu_controller_is_eager_and_matches_control_step(n_ilqr, parallel):
         np.testing.assert_array_equal(ctl.step(w), action)
         assert {k: float(v) for k, v in ctl.diag.items()} == diag
     assert torch.equal(ctl.generator.get_state(), gen.get_state())
+    assert ctl._program.graph is None
 
 
 def test_step_program_refuses_the_cpu():
-    """The step program is built only for a card: for CPU tensors it raises
-    rather than run eagerly under the program's name."""
+    """The step program's graph is built only for a card: asked to graph
+    CPU buffers it raises rather than run eagerly under the graph's
+    name."""
     cfg = tentry._small_cfg()
     nominal = torch.zeros((cfg.mppi.horizon, cfg.mppi.action_dim))
+    words = torch.zeros((cfg.dynamics.image_size // 4) ** 2, 4,
+                        dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        TR._StepGraph(_params(cfg), nominal, torch.zeros(64), cfg)
+        TR._StepProgram(words, (nominal,), {}, None, None, graphed=True)
 
 
 # --- on a card -------------------------------------------------------------
